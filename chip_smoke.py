@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
+Phases, each of which raises (non-zero exit) on any failed check:
+
+1. device and build: the card's name and power limit, the CUDA tile-SpMV
+   kernels built from ``src/repro_torch/kernels/block_spmv/csrc``;
+2. kernel parity: each kernel against its plain PyTorch version on the card
+   (sum and or semirings; f32, f64, bf16; B = 8, 64, 128; exact and padded
+   layouts and after an ``apply_delta``; the active kernel into a
+   NaN-poisoned output buffer, and a fused drive whose active-kernel outputs
+   are all poisoned must equal the clean drive exactly);
+3. main path: ``PageRankSession.from_graph`` over ``grid_road(1024)``
+   (n = 1,048,576, a road network) in f64 at B = 64 with its cold solve,
+   ``warmup()``, 8 ``df`` updates of ``random_batch(frac=1e-4,
+   deletions_frac=0.2)``, one ``nd`` update (the paper's warm-start
+   baseline), then ``top_k(10)`` and a ``query``; the launch counters are
+   zeroed just before and read just after; the final ranks are held to the
+   port's ``numpy_reference`` on the final graph;
+4. each kernel timed at the main path's shapes beside its bound, its plain
+   version and the ``torch.sparse`` CSR product of the same matrix;
+5. one more df update under ``cProfile``: where its wall time goes.
+
+Prints the kernel table as one JSON line, then as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
+result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+F64_FLOPS = 34e12                # H100 SXM FP64 outside the tensor cores
+SIDE = 1024                      # grid_road(1024): n = 1,048,576
+BLOCK = 64
+TAU = 1e-10
+N_DF_UPDATES = 8
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def _time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernel parity on the card
+# ---------------------------------------------------------------------------
+
+TOLS = {"float32": 2e-5, "float64": 1e-12, "bfloat16": 3e-2}
+
+
+def _parity(bsk, ops, rng) -> dict:
+    """Each kernel vs its plain version on identical inputs; returns the
+    worst absolute error per kernel."""
+    worst = {"block_spmv": 0.0, "block_spmv_active": 0.0}
+    n = 1500
+    cases = 0
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        tol = TOLS[str(dt).split(".")[1]]
+        for B in (8, 64, 128):
+            rows = rng.integers(0, n, 12000)
+            cols = rng.integers(0, n, 12000)
+            drows = rng.integers(0, n, 400)
+            dcols = rng.integers(0, n, 400)
+            dvals = np.where(rng.random(400) < 0.5, -1.0, 1.0)
+            for padded in (False, True):
+                mats = [ops.build_block_sparse(rows, cols, n, n, block=B,
+                                               dtype=dt, padded=padded,
+                                               device="cuda")]
+                if padded:
+                    mats.append(ops.apply_delta(
+                        ops.build_block_sparse(rows, cols, n, n, block=B,
+                                               dtype=dt, padded=True,
+                                               device="cuda"),
+                        drows, dcols, dvals))
+                for mat in mats:
+                    x = torch.from_numpy(rng.random(n)).to(dt).cuda()
+                    act = torch.from_numpy(rng.random(mat.n_rb) < 0.3)
+                    ids = torch.full((mat.n_rb,), -1, dtype=torch.int32)
+                    k = int(act.sum())
+                    ids[:k] = torch.nonzero(act)[:, 0].to(torch.int32)
+                    ids = ids.cuda()
+                    act_rows = act.repeat_interleave(B).cuda()
+                    for sr in ("sum", "or"):
+                        xx = ops._pad_x(mat, x if sr == "sum"
+                                        else (x > 0.8).to(dt))
+                        kw = dict(block=B, max_tiles=mat.max_tiles,
+                                  semiring=sr)
+                        args = (mat.tile_idx, mat.tile_cols, mat.tiles, xx)
+                        y = bsk.block_spmv_cuda(*args, **kw).double()
+                        yp = bsk.block_spmv_plain(*args, **kw).double()
+                        err = float((y - yp).abs().max())
+                        _check(bool(torch.allclose(y, yp, rtol=tol,
+                                                   atol=tol)),
+                               f"block_spmv {dt} B={B} padded={padded} "
+                               f"{sr}: max abs err {err}")
+                        worst["block_spmv"] = max(worst["block_spmv"], err)
+                        if sr == "or":
+                            _check(bool(((y == 0) | (y == 1)).all()),
+                                   "or semiring must give a 0/1 indicator")
+                        poisoned = torch.full((mat.n_rb * B,), float("nan"),
+                                              dtype=dt, device="cuda")
+                        ya = bsk.block_spmv_active_cuda(
+                            ids, *args, out=poisoned, **kw).double()
+                        yap = bsk.block_spmv_active_plain(
+                            ids, *args, **kw).double()
+                        _check(bool(torch.isnan(ya[~act_rows]).all()),
+                               "active kernel wrote a row of an inactive "
+                               "block")
+                        err = float((ya[act_rows] - yap[act_rows]).abs()
+                                    .max()) if k else 0.0
+                        _check(bool(torch.allclose(ya[act_rows],
+                                                   yap[act_rows], rtol=tol,
+                                                   atol=tol)),
+                               f"block_spmv_active {dt} B={B} "
+                               f"padded={padded} {sr}: max abs err {err}")
+                        worst["block_spmv_active"] = max(
+                            worst["block_spmv_active"], err)
+                        cases += 1
+    torch.cuda.synchronize()
+    print(f"parity: {cases} cases per kernel passed; worst abs err "
+          f"{worst}", flush=True)
+    return worst
+
+
+def _poisoned_drive_matches(bsk, pe) -> None:
+    """A fused DF drive in which every active-kernel output starts as NaN
+    must equal the clean drive bit for bit: no caller reads the rows of
+    blocks outside the launch list."""
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import grid_road
+    hg = grid_road(96, seed=3)
+    g = hg.snapshot(block_size=64, device="cuda")
+    R0 = torch.full((g.n_pad,), 1.0 / g.n, dtype=torch.float64,
+                    device="cuda")
+    dels, ins = random_batch(hg, 2e-3, seed=5, deletions_frac=0.2)
+    seeds = np.unique(np.concatenate([dels[:, 1], ins[:, 1]]))
+    aff = torch.zeros(g.n_pad, dtype=torch.bool, device="cuda")
+    aff[torch.as_tensor(seeds, device="cuda")] = True
+    clean = pe.run_pallas(g, R0, aff, tau=TAU)
+
+    real = bsk.tile_spmv_active
+
+    def poisoned(active_ids, tile_idx, tile_cols, tiles, x, **kw):
+        out = torch.full((tile_cols.shape[0] * kw["block"],), float("nan"),
+                         dtype=x.dtype, device=x.device)
+        return bsk.block_spmv_active_cuda(active_ids, tile_idx, tile_cols,
+                                          tiles, x, out=out, **kw)
+
+    bsk.tile_spmv_active = poisoned      # every active launch of the drive
+    try:
+        dirty = pe.run_pallas(g, R0, aff, tau=TAU)
+    finally:
+        bsk.tile_spmv_active = real
+    _check(not bool(torch.isnan(dirty[0]).any()), "NaN leaked into ranks")
+    _check(bool(torch.equal(clean[0], dirty[0])) and clean[1] == dirty[1],
+           "poisoned drive differs from the clean drive")
+    print(f"poisoned-output drive equals the clean drive "
+          f"({clean[1].sweeps} sweeps)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernel timing at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def _csr(rows: np.ndarray, cols: np.ndarray, n_rows: int, n_cols: int):
+    """The pull matrix as a torch.sparse CSR tensor (the yardstick only)."""
+    order = np.lexsort((cols, rows))
+    r, c = rows[order], cols[order]
+    crow = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=n_rows), out=crow[1:])
+    with warnings.catch_warnings():      # "CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(crow, device="cuda"),
+            torch.as_tensor(c, device="cuda"),
+            torch.ones(len(c), dtype=torch.float64, device="cuda"),
+            size=(n_rows, n_cols), check_invariants=False)
+
+
+def _time_kernels(bsk, ops, sess, rng) -> list:
+    mat = sess.inc.mat
+    B, mt, n_rb = mat.block, mat.max_tiles, mat.n_rb
+    item = mat.tiles.element_size()
+    live = mat.tile_cols_h >= 0                       # [n_rb, mt]
+    deg = sess._out_deg.clamp(min=1).to(torch.float64)
+    x = ops._pad_x(mat, torch.where(sess.valid, sess.R / deg, 0.0))
+    src, dst = sess.hg.snapshot(block_size=B).in_edges_host()
+    kw = dict(block=B, max_tiles=mt, semiring="sum")
+    args = (mat.tile_idx, mat.tile_cols, mat.tiles, x)
+    table = []
+
+    # kernel #1: every row-block (the all-active pull of cold/nd/static)
+    y = bsk.block_spmv_cuda(*args, **kw)
+    yp = bsk.block_spmv_plain(*args, **kw)
+    err1 = float((y - yp).abs().max())
+    n_live = int(live.sum())
+    bytes1 = (n_live * B * B * item + 2 * n_rb * mt * 4
+              + x.numel() * item + n_rb * B * item)
+    flops1 = 2 * n_live * B * B
+    A = _csr(dst, src, sess.n_pad, sess.n_pad)
+    xv = x[:sess.n_pad]
+    lib1 = _time_ms(lambda: torch.mv(A, xv), 20)
+    yl = torch.mv(A, xv)
+    _check(bool(torch.allclose(y[:sess.n_pad], yl, rtol=1e-12, atol=1e-15)),
+           "block_spmv disagrees with the CSR product")
+    table.append(dict(
+        name="block_spmv", route="cuda",
+        source="src/repro_torch/kernels/block_spmv/csrc/block_spmv.cu",
+        replaces="src/repro/kernels/block_spmv/block_spmv.py:80",
+        max_abs_err=err1,
+        ms=_time_ms(lambda: bsk.block_spmv_cuda(*args, **kw), 20),
+        plain_ms=_time_ms(lambda: bsk.block_spmv_plain(*args, **kw), 3),
+        bound_ms=max(bytes1 / HBM_BYTES_PER_S, flops1 / F64_FLOPS) * 1e3,
+        bound_by=("bytes" if bytes1 / HBM_BYTES_PER_S >= flops1 / F64_FLOPS
+                  else "operations"),
+        library_ms=lib1, shape=f"all {n_rb} row-blocks, {n_live} live "
+        f"tiles of {B}x{B} f64"))
+
+    # kernel #2: a 1 % frontier of row-blocks, one launch over the full list
+    k = max(1, n_rb // 100)
+    act = np.sort(rng.choice(n_rb, size=k, replace=False))
+    ids_h = np.full(n_rb, -1, np.int32)
+    ids_h[:k] = act
+    ids = torch.as_tensor(ids_h, device="cuda")
+    ya = bsk.block_spmv_active_cuda(ids, *args, **kw)
+    yap = bsk.block_spmv_active_plain(ids, *args, **kw)
+    rows_act = torch.as_tensor(np.repeat(act, B) * B
+                               + np.tile(np.arange(B), k), device="cuda")
+    err2 = float((ya[rows_act] - yap[rows_act]).abs().max())
+    live_a = live[act]
+    n_live_a = int(live_a.sum())
+    n_xcb = len(np.unique(mat.tile_cols_h[act][live_a]))
+    bytes2 = (n_live_a * B * B * item + n_rb * 4 + 2 * k * mt * 4
+              + n_xcb * B * item + k * B * item)
+    flops2 = 2 * n_live_a * B * B
+    in_act = np.isin(dst // B, act)
+    pos = np.full(n_rb, -1, np.int64)
+    pos[act] = np.arange(k)
+    sub_rows = pos[dst[in_act] // B] * B + dst[in_act] % B
+    A_sub = _csr(sub_rows, src[in_act], k * B, sess.n_pad)
+    lib2 = _time_ms(lambda: torch.mv(A_sub, xv), 50)
+    _check(bool(torch.allclose(ya[rows_act], torch.mv(A_sub, xv),
+                               rtol=1e-12, atol=1e-15)),
+           "block_spmv_active disagrees with the CSR product")
+    table.append(dict(
+        name="block_spmv_active", route="cuda",
+        source="src/repro_torch/kernels/block_spmv/csrc/block_spmv.cu",
+        replaces="src/repro/kernels/block_spmv/block_spmv.py:117",
+        max_abs_err=err2,
+        ms=_time_ms(lambda: bsk.block_spmv_active_cuda(ids, *args, **kw),
+                    50),
+        plain_ms=_time_ms(
+            lambda: bsk.block_spmv_active_plain(ids, *args, **kw), 3),
+        bound_ms=max(bytes2 / HBM_BYTES_PER_S, flops2 / F64_FLOPS) * 1e3,
+        bound_by=("bytes" if bytes2 / HBM_BYTES_PER_S >= flops2 / F64_FLOPS
+                  else "operations"),
+        library_ms=lib2, shape=f"{k} of {n_rb} row-blocks (1 %), "
+        f"{n_live_a} live tiles of {B}x{B} f64"))
+    full_ids = torch.arange(n_rb, dtype=torch.int32, device="cuda")
+    t_full = _time_ms(lambda: bsk.block_spmv_active_cuda(full_ids, *args,
+                                                          **kw), 20)
+    print(f"block_spmv_active over the full list: {t_full:.4f} ms "
+          f"(bound {bytes1 / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    return table
+
+
+def _profile_update(sess, random_batch) -> None:
+    """Where one more df update's wall time goes: cProfile's own time per
+    function (host work; the waits for the card show up in the driver's
+    poll, ``Tensor.cpu``)."""
+    import cProfile
+    import pstats
+    dels, ins = random_batch(sess.hg, 1e-4, seed=999, deletions_frac=0.2)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    res = sess.update(dels, ins)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, f"{Path(fn).name}:{line}({name})", nc)
+                   for (fn, line, name), (_, nc, tt, _, _) in stats.items()),
+                  reverse=True)[:12]
+    print(f"profile of one df update ({wall * 1e3:.1f} ms wall, "
+          f"{res.stats.sweeps} sweeps, {res.host_syncs} host syncs), own "
+          "time per function:", flush=True)
+    for tt, where, nc in rows:
+        print(f"  {tt * 1e3:9.2f} ms {100 * tt / wall:5.1f} %  {nc:6d} calls"
+              f"  {where}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        _fail("no CUDA device is visible; the port's smoke run needs one")
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        _fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
+              "checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core import pallas_engine as pe
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.pagerank import numpy_reference
+    from repro_torch.graphs.generators import grid_road
+    from repro_torch.kernels.block_spmv import block_spmv as bsk
+    from repro_torch.kernels.block_spmv import ops
+
+    t_start = time.perf_counter()
+    # -- phase 1: device and build -----------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"device: {name}", flush=True)
+    print(f"nvidia-smi: {smi}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    bsk.library()
+    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # -- phase 2: kernel parity ---------------------------------------------
+    rng = np.random.default_rng(2024)
+    _parity(bsk, ops, rng)
+    _poisoned_drive_matches(bsk, pe)
+
+    # -- phase 3: main path --------------------------------------------------
+    t0 = time.perf_counter()
+    hg = grid_road(SIDE, seed=7)
+    print(f"graph: grid_road({SIDE}) n={hg.n} m={hg.m} (+{hg.n} self-loops)"
+          f" in {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU)
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    cold = (bsk.block_spmv_cuda.launches, bsk.block_spmv_active_cuda.launches)
+    mat = sess.inc.mat
+    print(f"open + cold solve: {t_open:.2f} s; tile pool {mat.n_tiles()} "
+          f"live tiles, capacity {mat.tile_capacity} "
+          f"({mat.tiles.nbytes / 1e9:.2f} GB), max_tiles {mat.max_tiles}; "
+          f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
+    sess.warmup()
+    df = []
+    for i in range(N_DF_UPDATES):
+        dels, ins = random_batch(sess.hg, 1e-4, seed=100 + i,
+                                 deletions_frac=0.2)
+        res = sess.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        df.append(res)
+        print(f"df update {i}: {len(dels)} del + {len(ins)} ins, "
+              f"{res.wall_time_s * 1e3:.2f} ms, sweeps {res.stats.sweeps}, "
+              f"blocks {res.stats.blocks_processed}, edges "
+              f"{res.stats.edges_processed}, host syncs {res.host_syncs}, "
+              f"converged {res.converged}", flush=True)
+    after_df = (bsk.block_spmv_cuda.launches,
+                bsk.block_spmv_active_cuda.launches)
+    dels, ins = random_batch(sess.hg, 1e-4, seed=100 + N_DF_UPDATES,
+                             deletions_frac=0.2)
+    nd = sess.update(dels, ins, variant="nd")
+    torch.cuda.synchronize()
+    print(f"nd update (baseline): {nd.wall_time_s * 1e3:.2f} ms, sweeps "
+          f"{nd.stats.sweeps}, edges {nd.stats.edges_processed}, host syncs "
+          f"{nd.host_syncs}", flush=True)
+    top_vals, top_ids = sess.top_k(10)
+    q = sess.query(top_ids)
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches}
+    walls = np.array([r.wall_time_s for r in df]) * 1e3
+    print(f"df per-update wall: p50 {np.percentile(walls, 50):.2f} ms, p95 "
+          f"{np.percentile(walls, 95):.2f} ms over {len(walls)} updates; "
+          f"host syncs per drive {[r.host_syncs for r in df]}", flush=True)
+    print(f"launches on the main path: {launches} (cold solve {cold}, "
+          f"after the df updates {after_df})", flush=True)
+    print(f"report: {sess.report()}", flush=True)
+
+    _check(all(r.converged for r in df) and nd.converged,
+           "an update did not converge")
+    _check(after_df[1] > cold[1], "df updates launched no block_spmv_active")
+    _check(launches["block_spmv"] > after_df[0],
+           "the nd update launched no block_spmv")
+    _check(cold[0] > 0, "the cold solve launched no block_spmv")
+    _check(bool(np.array_equal(q, top_vals)), "query != top_k values")
+
+    t0 = time.perf_counter()
+    ref = numpy_reference(sess.hg.snapshot(block_size=BLOCK))
+    r = sess.ranks
+    err = float(np.abs(r[:sess.n] - ref[:sess.n]).max())
+    mass = float(r[:sess.n].sum())
+    print(f"oracle ({time.perf_counter() - t0:.1f} s): L_inf {err:.3e}, "
+          f"|mass - 1| {abs(mass - 1):.3e} (oracle's own "
+          f"{abs(ref.sum() - 1):.3e})", flush=True)
+    _check(bool(np.isfinite(r).all()) and r.shape == (sess.n_pad,),
+           "ranks are not finite or of the wrong shape")
+    _check(err <= 1e-9, f"L_inf vs numpy_reference {err} > 1e-9")
+    # bound of the repo's integrity check (core/integrity.py): a converged
+    # DF iterate's mass error is at most n * tau
+    _check(abs(mass - 1) <= sess.n * TAU, f"|mass - 1| = {abs(mass - 1)}")
+    _check(bool(np.allclose(top_vals, ref[top_ids], rtol=0, atol=1e-9)),
+           "top_k values disagree with the oracle")
+    _check(top_vals[-1] >= np.sort(ref[:sess.n])[-10] - 1e-9,
+           "top_k missed an oracle top-10 vertex")
+
+    # -- phase 4: kernel timing at the main path's shapes -------------------
+    table = _time_kernels(bsk, ops, sess, rng)
+    for row in table:
+        row["launches"] = launches[row["name"]]
+        print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}"
+              f" ms by {row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
+              f"torch.sparse {row['library_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e}, {row['shape']}", flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    _profile_update(sess, random_batch)
+    sess.close()
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in table]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,221 @@
+"""`EngineConfig` of the port (ports ``EngineConfig`` from
+``src/repro/api/config.py``).
+
+Same fields and the same construction-time validation as the JAX config.
+Values that belong to later slices of the port raise ``NotImplementedError``
+at construction, naming the ROADMAP item (queue A) that brings them; a
+config that constructs is one the stream session of this slice runs.
+
+Two fields mean less here than in the reference:
+
+* ``engine`` resolves to ``"pallas"`` — the fused frontier engine, whose
+  tile SpMV is the hand-written CUDA kernel on the card;
+* ``backend`` accepts only ``None``: the tensors' device picks the kernel
+  (CUDA) or its plain version (CPU), and no setting can put the plain
+  version on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.device import as_torch_dtype
+
+MODES = ("lf", "bb")
+ACTIVE_POLICIES = ("affected", "rc")
+DRIVERS = ("pull", "push")
+TOPOLOGIES = ("single", "sharded")
+EXCHANGES = ("full", "bf16", "delta")
+DURABILITIES = ("none", "wal")
+PARTITIONERS = ("contiguous", "hash", "bfs_blocks")
+ENGINES = ("pallas",)
+
+# ROADMAP queue-A items that bring the values this slice rejects
+_LATER = {
+    "engine:dense": "A 3 (dense oracle engine)",
+    "engine:blocked": "A 7 (blocked Gauss–Seidel engine)",
+    "engine:walk": "A 13 (walk engine / PPR)",
+    "engine:distributed": "A 14 (sharded topology)",
+    "driver:push": "A 6 (push driver)",
+    "topology:sharded": "A 14 (sharded topology)",
+    "durability:wal": "A 9 (durability)",
+    "fault_domain": "A 9 (durability and fault domains)",
+    "integrity": "A 11 (integrity and chaos)",
+    "walk": "A 13 (walk engine / PPR)",
+    "device_budget_bytes": "A 10 (tiered storage)",
+}
+
+
+def _later(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
+        "this slice runs the untiered single-device pull stream")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Validated, immutable engine configuration (field meanings as in
+    ``repro.api.config.EngineConfig``).  ``dtype=None`` resolves to f64, the
+    paper's rank type."""
+
+    alpha: float = 0.85
+    tau: float = 1e-10
+    tau_f: Optional[float] = None
+    mode: str = "lf"
+    engine: Optional[str] = None
+    backend: Optional[str] = None
+    tile: int = 512
+    block_size: int = 64
+    active_policy: str = "affected"
+    max_iterations: int = 500
+    faults: Optional[Any] = None
+    dtype: Optional[Any] = None
+    topology: str = "single"
+    n_shards: Optional[int] = None
+    partitioner: str = "contiguous"
+    exchange: str = "full"
+    fault_domain: Optional[Any] = None
+    durability: str = "none"
+    checkpoint_interval: int = 16
+    integrity: Optional[Any] = None
+    walks_per_vertex: Optional[int] = None
+    walk_length: Optional[int] = None
+    walk_seed: Optional[int] = None
+    device_budget_bytes: Optional[int] = None
+    driver: str = "pull"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(
+                f"mode={self.mode!r} invalid; expected one of {MODES}")
+        if self.active_policy not in ACTIVE_POLICIES:
+            raise ValueError(f"active_policy={self.active_policy!r} invalid; "
+                             f"expected one of {ACTIVE_POLICIES}")
+        if not (0.0 < float(self.alpha) < 1.0):
+            raise ValueError(f"alpha={self.alpha} outside (0, 1)")
+        if float(self.tau) <= 0:
+            raise ValueError(f"tau={self.tau} must be > 0")
+        if self.tau_f is not None and float(self.tau_f) <= 0:
+            raise ValueError(f"tau_f={self.tau_f} must be > 0 (or None)")
+        for name in ("tile", "block_size", "max_iterations"):
+            if int(getattr(self, name)) <= 0:
+                raise ValueError(f"{name}={getattr(self, name)} must be > 0")
+        if self.faults is not None and not hasattr(self.faults,
+                                                  "device_tables"):
+            raise ValueError(
+                "faults must be a FaultPlan (needs .device_tables())")
+        if self.dtype is not None:
+            as_torch_dtype(self.dtype)
+        # -- engine / backend -------------------------------------------------
+        if self.backend is not None:
+            raise ValueError(
+                f"backend={self.backend!r}: the port has no tile-backend "
+                "switch — a CUDA tensor always runs the hand-written kernel "
+                "and a CPU tensor (device='cpu', asked for explicitly) its "
+                "plain version; leave backend=None")
+        if self.engine not in (None,) + ENGINES:
+            key = f"engine:{self.engine}"
+            if key in _LATER:
+                raise _later(f"engine={self.engine!r}", key)
+            raise ValueError(f"unknown engine {self.engine!r}; this port "
+                             f"has {list(ENGINES)}")
+        # -- topology axis ----------------------------------------------------
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"topology={self.topology!r} invalid; "
+                             f"expected one of {TOPOLOGIES}")
+        if self.partitioner not in PARTITIONERS:
+            raise ValueError(f"partitioner={self.partitioner!r} invalid; "
+                             f"expected one of {PARTITIONERS}")
+        if self.exchange not in EXCHANGES:
+            raise ValueError(f"exchange={self.exchange!r} invalid; "
+                             f"expected one of {EXCHANGES}")
+        if self.n_shards is not None and int(self.n_shards) <= 0:
+            raise ValueError(f"n_shards={self.n_shards} must be > 0 "
+                             "(or None for all visible devices)")
+        if self.topology == "single" and self.n_shards is not None:
+            raise ValueError(
+                "n_shards is only meaningful with topology='sharded' "
+                f"(got topology='single', n_shards={self.n_shards})")
+        if self.topology == "sharded":
+            raise _later("topology='sharded'", "topology:sharded")
+        # -- fault-domain / durability axis -----------------------------------
+        if self.durability not in DURABILITIES:
+            raise ValueError(f"durability={self.durability!r} invalid; "
+                             f"expected one of {DURABILITIES}")
+        if int(self.checkpoint_interval) <= 0:
+            raise ValueError(f"checkpoint_interval={self.checkpoint_interval}"
+                             " must be > 0")
+        if self.durability == "wal":
+            raise _later("durability='wal'", "durability:wal")
+        if self.integrity is not None:
+            raise _later("integrity=", "integrity")
+        if self.fault_domain is not None:
+            raise _later("fault_domain=", "fault_domain")
+        # -- walk-engine / personalization axis -------------------------------
+        for name, lo in (("walks_per_vertex", 1), ("walk_length", 2),
+                         ("walk_seed", 0)):
+            v = getattr(self, name)
+            if v is None:
+                continue
+            if isinstance(v, bool) or not isinstance(v, int):
+                raise ValueError(
+                    f"{name} must be an integer (or None), got "
+                    f"{type(v).__name__} ({v!r})")
+            if v < lo:
+                raise ValueError(f"{name}={v} must be >= {lo}")
+            raise _later(f"{name}=", "walk")
+        # -- tiered-storage axis ----------------------------------------------
+        if self.device_budget_bytes is not None:
+            v = self.device_budget_bytes
+            if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
+                raise ValueError(
+                    f"device_budget_bytes={v!r} must be a positive integer "
+                    "(or None for untiered storage)")
+            raise _later("device_budget_bytes=", "device_budget_bytes")
+        # -- driver axis ------------------------------------------------------
+        if self.driver not in DRIVERS:
+            raise ValueError(
+                f"driver={self.driver!r} invalid; expected one of {DRIVERS}")
+        if self.driver == "push":
+            raise _later("driver='push'", "driver:push")
+
+    # -- resolution helpers --------------------------------------------------
+    @property
+    def resolved_engine(self) -> str:
+        return "pallas"
+
+    def resolved_tau_f(self, *, expand: bool) -> float:
+        if not expand:
+            return float("inf")
+        return float(self.tau_f) if self.tau_f is not None \
+            else float(self.tau) / 1000.0
+
+    def resolved_dtype(self) -> torch.dtype:
+        return (torch.float64 if self.dtype is None
+                else as_torch_dtype(self.dtype))
+
+    # -- strict construction -------------------------------------------------
+    @classmethod
+    def valid_keys(cls) -> tuple:
+        return tuple(f.name for f in dataclasses.fields(cls))
+
+    @classmethod
+    def from_kwargs(cls, **kw) -> "EngineConfig":
+        """Build a config, rejecting unknown keys with the valid-key list."""
+        unknown = sorted(set(kw) - set(cls.valid_keys()))
+        if unknown:
+            raise TypeError(
+                f"unknown EngineConfig key(s) {unknown}; "
+                f"valid keys: {sorted(cls.valid_keys())}")
+        return cls(**kw)
+
+    def replace(self, **kw) -> "EngineConfig":
+        """``dataclasses.replace`` with the same strict key check."""
+        unknown = sorted(set(kw) - set(self.valid_keys()))
+        if unknown:
+            raise TypeError(
+                f"unknown EngineConfig key(s) {unknown}; "
+                f"valid keys: {sorted(self.valid_keys())}")
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,464 @@
+"""`PageRankSession` — the stream-mode pull session of the port.
+
+Ports the untiered, single-device, pull-driver stream mode of
+``src/repro/api/session.py``: ``_seed_affected``, ``_apply_operand_delta``,
+``from_graph``, ``_init_stream``, ``_drive``, ``_update_stream``,
+``update``, ``query``, ``top_k``, ``ranks``, ``warmup``, ``close`` and
+``report``::
+
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.api.config import EngineConfig
+
+    sess = PageRankSession.from_graph(hg, config=EngineConfig(tau=1e-10))
+    sess.update(dels, ins)          # DF_LF step on the card
+    sess.query([3, 17, 42])         # device gather, only the values move
+    sess.top_k(10)
+
+The graph is snapshotted once; the capacity-padded pull matrix and the
+per-vertex / per-block engine operands live on the device and are patched
+in O(batch) per update; every update re-enters the fused driver of
+:mod:`repro_torch.core.pallas_engine`.
+
+One ordering differs from the reference, because the port patches the tile
+pool in place: the DF seed's OR pass over G^{t-1} runs *before* the tile
+scatter, and its pass over G^t after it (the JAX session keeps both pools
+and runs both passes after the scatter).  The marking is the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import EngineConfig
+from repro_torch.core import faults as flt
+from repro_torch.core import frontier as fr
+from repro_torch.core import pallas_engine as pe
+from repro_torch.core.blocked import SweepStats
+from repro_torch.core.delta import signed_edge_delta, validate_edge_batch
+from repro_torch.core.graph import HostGraph, initial_ranks
+from repro_torch.core.incremental import (IncrementalPullMatrix,
+                                          effective_batch)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.block_spmv import block_spmv as bsk
+from repro_torch.kernels.block_spmv import ops
+
+VARIANTS = ("static", "nd", "dt", "df")
+
+
+class SweepCapWarning(RuntimeWarning):
+    """An update batch hit ``max_iterations`` without converging — the
+    served ranks are the best iterate, not a ``tau``-converged solution."""
+
+
+# ---------------------------------------------------------------------------
+# streaming machinery
+# ---------------------------------------------------------------------------
+
+def _block_rows(flags: torch.Tensor, block_size: int) -> torch.Tensor:
+    return flags[:, None].expand(-1, block_size).reshape(-1)
+
+
+def _seed_sources(bmat: torch.Tensor, batch: torch.Tensor,
+                  valid: torch.Tensor, *, block_size: int):
+    """Source indicator of a packed batch and the candidate row-blocks that
+    own a tile in a source's column-block: (f, cand, cand ids, count)."""
+    n_pad = valid.shape[0]
+    n_rb = n_pad // block_size
+    ind = torch.zeros(n_pad + 1, dtype=torch.bool, device=valid.device)
+    ind[batch[:, 0].long().clamp(max=n_pad)] = True
+    f = ind[:n_pad] & valid
+    sb = fr.block_any(f, n_rb, block_size)
+    cand = (bmat & sb[None, :]).any(dim=1)
+    return f, cand, fr.compact_block_ids(cand, n_rb), cand.sum()
+
+
+def _seed_pass(mat: ops.BlockSparse, seed) -> torch.Tensor:
+    """OR pass of the seed over one graph's pull matrix (rows of
+    non-candidate blocks are undefined; :func:`_seed_mask` drops them)."""
+    f, _, cids, n_cand = seed
+    return ops.block_spmv_active_bucketed(
+        mat, f.to(mat.tiles.dtype), cids, n_cand, semiring="or") > 0
+
+
+def _seed_mask(hit: torch.Tensor, seed, valid: torch.Tensor, *,
+               block_size: int) -> torch.Tensor:
+    return hit & _block_rows(seed[1], block_size) & valid
+
+
+def _seed_affected(mat_prev: ops.BlockSparse, mat_new: ops.BlockSparse,
+                   bmat, batch, valid, *, block_size: int) -> torch.Tensor:
+    """Initial DF frontier for one batch (paper Alg. 1 lines 4-6): mark the
+    out-neighbors of every update source in G^{t-1} *and* G^t, through both
+    graphs' pull matrices, launching only over the candidate row-blocks
+    (``bmat`` is the post-batch tile presence, a superset of the pre-batch
+    one).  ``mat_prev`` must still hold the pre-batch tile values; the
+    session, whose tile pool is patched in place, runs the two passes
+    around the patch instead of calling this."""
+    seed = _seed_sources(bmat, batch, valid, block_size=block_size)
+    hit = _seed_pass(mat_prev, seed) | _seed_pass(mat_new, seed)
+    return _seed_mask(hit, seed, valid, block_size=block_size)
+
+
+def _apply_operand_delta(out_deg, rb_in, rb_out, bmat, rows, cols, vals, *,
+                         block: int):
+    """O(batch) in-place update of the engine-operand mirrors from the
+    signed pull-layout delta (rows = dst, cols = src, vals = ±1 tensors on
+    the mirrors' device).  Integer scatters, so their order is immaterial."""
+    n_rb = rb_in.shape[0]
+    rb = (rows // block).clamp(max=n_rb - 1)
+    cb = (cols // block).clamp(max=n_rb - 1)
+    out_deg.index_add_(0, cols, vals.to(out_deg.dtype))
+    rb_in.index_add_(0, rb, vals.to(rb_in.dtype))
+    rb_out.index_add_(0, cb, vals.to(rb_out.dtype))
+    bmat[rb, cb] = True
+    return out_deg, rb_in, rb_out, bmat
+
+
+@dataclasses.dataclass
+class StreamBatchResult:
+    """Outcome of one update step."""
+    ranks: torch.Tensor           # [n_pad] post-batch converged ranks
+    stats: SweepStats
+    wall_time_s: float            # full step: delta + seed + converge
+    batch_edges: int              # raw batch size (before no-op filtering)
+    driver_retraces: int = 0      # kernel builds during this step
+    host_syncs: int = 0           # device-to-host reads of the drive
+
+    @property
+    def converged(self) -> bool:
+        return bool(self.stats.converged)
+
+
+@dataclasses.dataclass
+class SessionReport:
+    """Aggregate latency / work statistics of a session."""
+    engine: str
+    device: str
+    mode: str
+    n_updates: int
+    p50_s: float
+    p95_s: float
+    retraces_post_warmup: int     # kernel builds after warmup
+    total_sweeps: int
+    total_edges_processed: int
+    queries_served: int
+    wall_times_s: List[float]
+    batches_converged: int = 0
+    sweep_cap_hits: int = 0
+    topology: str = "single"
+    durability: str = "none"
+    device_bytes: Optional[dict] = None
+    bytes_per_vertex: Optional[float] = None
+    driver: str = "pull"
+    sweeps_history: List[int] = dataclasses.field(default_factory=list)
+    edges_processed_history: List[int] = dataclasses.field(
+        default_factory=list)
+    host_syncs_history: List[int] = dataclasses.field(default_factory=list)
+
+
+class PageRankSession:
+    """Stateful PageRank handle owning the host graph, the device tile pool
+    and operand mirrors, and the ranks.  Construct via :meth:`from_graph`."""
+
+    def __init__(self, *, hg: HostGraph, config: Optional[EngineConfig] = None,
+                 r0=None, device="cuda"):
+        if config is None:
+            config = EngineConfig()
+        if not isinstance(config, EngineConfig):
+            raise TypeError(
+                f"config must be an EngineConfig, got {type(config).__name__}"
+                " — build one with repro_torch.api.config.EngineConfig(...)")
+        if hg is None:
+            raise ValueError("need a HostGraph (from_graph)")
+        self.config = config
+        self.device = resolve_device(device)
+        self.engine_name = config.resolved_engine
+        self.hg = hg
+        self._dtype = config.resolved_dtype()
+        self._fault_plan = config.faults
+        self._closed = False
+        self._history: List[StreamBatchResult] = []
+        self._warm_idx: Optional[int] = None
+        self._queries = 0
+        self._init_stream(r0)
+
+    @classmethod
+    def from_graph(cls, hg: HostGraph, *,
+                   config: Optional[EngineConfig] = None, r0=None,
+                   device="cuda") -> "PageRankSession":
+        """Open a stream session over a host graph on ``device``.
+        ``r0=None`` runs one initial solve (``variant="static"``
+        semantics) so the session is born serving."""
+        return cls(hg=hg, config=config, r0=r0, device=device)
+
+    def _init_stream(self, r0) -> None:
+        cfg = self.config
+        dev, dt = self.device, self._dtype
+        # the only snapshot the stream builds; not retained
+        g0 = self.hg.snapshot(block_size=cfg.block_size, device=dev)
+        self.n, self.n_pad = g0.n, g0.n_pad
+        self.block_size, self.n_rb = g0.block_size, g0.n_blocks
+        # runtime hyperparameter operands
+        self._alpha = torch.tensor(cfg.alpha, dtype=dt, device=dev)
+        self._tau = torch.tensor(cfg.tau, dtype=dt, device=dev)
+        self._tau_f = torch.tensor(cfg.resolved_tau_f(expand=True),
+                                   dtype=dt, device=dev)
+        plan = self._fault_plan or flt.NO_FAULTS
+        self._fault_tables = tuple(
+            torch.as_tensor(a, device=dev)
+            for a in plan.device_tables(cfg.max_iterations))
+
+        self.inc = IncrementalPullMatrix.from_snapshot(g0, dtype=dt,
+                                                       padded=True)
+        self.valid = g0.vertex_valid
+        # device-resident engine operands, patched in place per batch;
+        # copies, never views of the host twins in inc.aux
+        self._out_deg = g0.out_deg.clone()
+        self._rb_in = torch.tensor(self.inc.aux.rb_in, device=dev)
+        self._rb_out = torch.tensor(self.inc.aux.rb_out, device=dev)
+        self._bmat = torch.tensor(self.inc.aux.bmat, device=dev)
+        if r0 is None:
+            r0, _ = pe.run_pallas(
+                g0, initial_ranks(g0, dt), g0.vertex_valid, mode=cfg.mode,
+                expand=False, alpha=cfg.alpha, tau=cfg.tau,
+                max_iterations=cfg.max_iterations,
+                active_policy=cfg.active_policy,
+                mat=self.inc.mat, aux=self.inc.aux)
+        r0 = torch.as_tensor(r0, dtype=dt, device=dev)
+        if r0.shape[0] < self.n_pad:        # length-n caller state
+            r0 = torch.cat([r0, r0.new_zeros(self.n_pad - r0.shape[0])])
+        self.R = r0[:self.n_pad]
+
+    # -- the fused solve -----------------------------------------------------
+    def _drive(self, R0, affected, *, expand: bool, full: bool = False
+               ) -> Tuple[torch.Tensor, SweepStats, int]:
+        """Run the fused driver over the device-resident operand mirrors;
+        returns (ranks, stats, host syncs made).  ``full``: every row-block
+        is affected and stays so (see ``pallas_engine._driver``)."""
+        cfg = self.config
+        part, alive, delay, crashed = self._fault_tables
+        R, sv, syncs = pe._driver(
+            self.inc.mat, R0, affected, self.valid, self._out_deg,
+            self._rb_in, self._rb_out, self._bmat,
+            self._alpha, self._tau, self._tau_f,
+            part, alive, delay, crashed,
+            n=self.n, block_size=self.block_size, mode=cfg.mode,
+            expand=expand, active_policy=cfg.active_policy,
+            max_iterations=cfg.max_iterations, full=full)
+        return R, pe._stats_from_vec(sv), syncs
+
+    def _update_stream(self, deletions, insertions, variant: str = "df"
+                       ) -> StreamBatchResult:
+        """Stream step: operand-mirror patch → DF seed over G^{t-1} → tile
+        scatter → DF seed over G^t → fused convergence loop."""
+        if variant == "dt":
+            raise NotImplementedError(
+                "variant='dt' is not ported yet: its reachability marking "
+                "(frontier.dt_affected) walks snapshots of both graphs and "
+                "comes with ROADMAP item A 4's remaining frontier helpers; "
+                "use 'df', 'nd' or 'static'")
+        t0 = time.perf_counter()
+        builds0 = bsk.builds()
+        dev, B = self.device, self.block_size
+        dels_eff, ins_eff = effective_batch(self.hg, deletions, insertions)
+        rows, cols, vals = signed_edge_delta(dels_eff, ins_eff)
+        if len(rows):
+            _apply_operand_delta(
+                self._out_deg, self._rb_in, self._rb_out, self._bmat,
+                torch.as_tensor(rows, device=dev),
+                torch.as_tensor(cols, device=dev),
+                torch.as_tensor(vals.astype(np.int32), device=dev),
+                block=B)
+        seed = h_prev = None
+        if variant == "df":
+            batch_dev = fr.pack_batch(self.n_pad, deletions, insertions,
+                                      device=dev)
+            seed = _seed_sources(self._bmat, batch_dev, self.valid,
+                                 block_size=B)
+            h_prev = _seed_pass(self.inc.mat, seed)     # G^{t-1}
+        self.inc.advance(self.hg, None, deletions, insertions,
+                         effective=(dels_eff, ins_eff))
+        self.hg = self.hg.apply_batch(deletions, insertions)
+
+        if variant == "df":
+            hit = h_prev | _seed_pass(self.inc.mat, seed)   # ∪ G^t
+            affected = _seed_mask(hit, seed, self.valid, block_size=B)
+            R0, expand = self.R, True
+        elif variant == "nd":
+            affected, R0, expand = self.valid, self.R, False
+        else:   # static
+            affected = self.valid
+            R0 = torch.where(self.valid,
+                             torch.tensor(1.0 / self.n, dtype=self._dtype,
+                                          device=dev), 0)
+            expand = False
+        # nd/static mark every vertex and never expand: all blocks active
+        full = (not expand and self.config.active_policy == "affected")
+        R, stats, syncs = self._drive(R0, affected, expand=expand, full=full)
+        self.R = R
+        raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
+               + np.asarray(insertions).reshape(-1, 2).shape[0])
+        return StreamBatchResult(
+            ranks=R, stats=stats, wall_time_s=time.perf_counter() - t0,
+            batch_edges=raw, driver_retraces=bsk.builds() - builds0,
+            host_syncs=syncs)
+
+    # -- updates -------------------------------------------------------------
+    def update(self, deletions, insertions, *, variant: str = "df"
+               ) -> StreamBatchResult:
+        """Apply one edge batch and reconverge.  ``variant``: ``"df"``
+        (Dynamic Frontier, the paper's algorithm), ``"nd"`` (warm start, all
+        affected) or ``"static"`` (cold start, all affected); ``"dt"``
+        raises ``NotImplementedError`` in this slice."""
+        self._ensure_open()
+        if variant not in VARIANTS:
+            raise ValueError(f"variant={variant!r} invalid; "
+                             f"expected one of {VARIANTS}")
+        deletions, insertions = validate_edge_batch(deletions, insertions,
+                                                    self.n)
+        res = self._update_stream(deletions, insertions, variant)
+        self._history.append(res)
+        if not res.stats.converged:
+            warnings.warn(
+                f"update batch {len(self._history)} hit the sweep cap "
+                f"(max_iterations={self.config.max_iterations}) without "
+                f"reaching tau={self.config.tau} — serving the best iterate",
+                SweepCapWarning, stacklevel=2)
+        return res
+
+    # -- serving reads -------------------------------------------------------
+    def _vertex_ids(self, vertices) -> np.ndarray:
+        arr = np.asarray(vertices)
+        if arr.size == 0:
+            return np.zeros(0, np.int64)
+        if arr.dtype == object or not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(
+                f"vertex ids must be integers, got dtype {arr.dtype} "
+                f"(value: {vertices!r})")
+        idx = arr.reshape(-1).astype(np.int64)
+        bad = (idx < 0) | (idx >= self.n)
+        if bad.any():
+            raise ValueError(
+                f"vertex id(s) {idx[bad][:8].tolist()} out of range for a "
+                f"graph with {self.n} vertices (valid ids: 0..{self.n - 1})")
+        return idx
+
+    def query(self, vertices: Union[int, Sequence[int], np.ndarray]
+              ) -> np.ndarray:
+        """Ranks of the given vertices: one device gather, only
+        ``len(vertices)`` values cross to the host."""
+        self._ensure_open()
+        idx = self._vertex_ids(vertices)
+        vals = self.R[torch.as_tensor(idx, device=self.device)]
+        self._queries += int(idx.shape[0])
+        return vals.cpu().numpy()
+
+    def top_k(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(values, vertex ids) of the k highest-ranked vertices, computed on
+        the device (ties: lower id first, as ``lax.top_k``)."""
+        self._ensure_open()
+        if not isinstance(k, (int, np.integer)):
+            raise ValueError(
+                f"k must be an integer, got {type(k).__name__} ({k!r})")
+        if k < 1:
+            raise ValueError(f"k={k} must be >= 1")
+        k = int(min(k, self.n))
+        masked = torch.where(self.valid, self.R, -torch.inf)
+        vals, idx = torch.sort(masked, descending=True, stable=True)
+        self._queries += k
+        return vals[:k].cpu().numpy(), idx[:k].cpu().numpy()
+
+    @property
+    def ranks(self) -> np.ndarray:
+        """Full host copy of the rank vector (prefer :meth:`query` /
+        :meth:`top_k` for serving)."""
+        self._ensure_open()
+        return self.R.cpu().numpy()
+
+    # -- lifecycle -----------------------------------------------------------
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def _ensure_open(self) -> None:
+        if self._closed:
+            raise ValueError("session is closed — open a new "
+                             "PageRankSession")
+
+    def close(self) -> None:
+        """End the session and drop every device buffer reference.
+        Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        for attr in ("R", "inc", "valid", "_out_deg", "_rb_in", "_rb_out",
+                     "_bmat", "_fault_tables"):
+            setattr(self, attr, None)
+
+    def __enter__(self) -> "PageRankSession":
+        self._ensure_open()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.close()
+        return False
+
+    # -- warmup / reporting --------------------------------------------------
+    def warmup(self) -> None:
+        """Run the per-batch pipeline once without perturbing graph or rank
+        state — a zero-value delta on vertex 0's self-loop tile and an
+        empty-batch step — so the kernel library is built and loaded and the
+        allocator holds the step's buffers before the first real update."""
+        self._ensure_open()
+        z = np.zeros(1, np.int64)
+        self.inc.mat = ops.apply_delta(self.inc.mat, z, z, np.zeros(1))
+        empty = np.zeros((0, 2), np.int64)
+        self._update_stream(empty, empty)
+        self._warm_idx = len(self._history)
+
+    def report(self) -> SessionReport:
+        """Latency / work statistics over the update history.
+        ``retraces_post_warmup`` counts kernel builds during updates after
+        :meth:`warmup` (or after the first update without one)."""
+        hist = self._history
+        walls = [r.wall_time_s for r in hist]
+        start = self._warm_idx if self._warm_idx is not None else 1
+        dev_bytes = self._device_bytes()
+        return SessionReport(
+            engine=self.engine_name, device=str(self.device),
+            mode=self.config.mode, n_updates=len(hist),
+            p50_s=float(np.percentile(walls, 50)) if walls else 0.0,
+            p95_s=float(np.percentile(walls, 95)) if walls else 0.0,
+            retraces_post_warmup=sum(r.driver_retraces
+                                     for r in hist[start:]),
+            total_sweeps=sum(r.stats.sweeps for r in hist),
+            total_edges_processed=sum(r.stats.edges_processed
+                                      for r in hist),
+            queries_served=self._queries, wall_times_s=walls,
+            batches_converged=sum(1 for r in hist if r.stats.converged),
+            sweep_cap_hits=sum(1 for r in hist if not r.stats.converged),
+            device_bytes=dev_bytes,
+            bytes_per_vertex=(sum(dev_bytes.values()) / max(self.n, 1)
+                              if dev_bytes is not None else None),
+            sweeps_history=[int(r.stats.sweeps) for r in hist],
+            edges_processed_history=[int(r.stats.edges_processed)
+                                     for r in hist],
+            host_syncs_history=[int(r.host_syncs) for r in hist])
+
+    def _device_bytes(self) -> Optional[dict]:
+        """Per-component device-resident bytes (the memory audit)."""
+        if self._closed:
+            return None
+        mat = self.inc.mat
+        return {
+            "ranks": self.R.nbytes + self.valid.nbytes,
+            "tile_pool": mat.tiles.nbytes,
+            "slot_tables": mat.tile_cols.nbytes + mat.tile_idx.nbytes,
+            "operand_mirrors": (self._out_deg.nbytes + self._rb_in.nbytes
+                                + self._rb_out.nbytes + self._bmat.nbytes),
+        }

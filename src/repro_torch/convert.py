@@ -1,0 +1,47 @@
+"""Carry state from the JAX package into the port (no counterpart in
+``src/repro``).
+
+Both functions take plain numpy arrays — the form any JAX array turns into
+with ``np.asarray`` — so a port object can start from exactly the state a
+JAX object holds without this package importing JAX.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.config import EngineConfig
+from repro_torch.api.session import PageRankSession
+from repro_torch.core.graph import HostGraph
+from repro_torch.device import resolve_device
+from repro_torch.kernels.block_spmv import ops
+
+
+def block_sparse_from_numpy(tiles: np.ndarray, tile_cols: np.ndarray,
+                            tile_idx: np.ndarray, n_rows: int, n_cols: int,
+                            block: int, device="cuda") -> ops.BlockSparse:
+    """A port ``BlockSparse`` holding the given tile pool and slot tables
+    (e.g. the arrays of a ``repro.kernels.block_spmv.ops.BlockSparse``)."""
+    dev = resolve_device(device)
+    tile_cols = np.asarray(tile_cols, np.int32)
+    if tile_cols.ndim != 2:
+        raise ValueError(f"tile_cols must be [n_rb, max_tiles], got shape "
+                         f"{tile_cols.shape}")
+    tiles_t = torch.from_numpy(np.array(tiles)).to(dev)     # owned copy
+    return ops._from_tables(int(n_rows), int(n_cols), int(block),
+                            int(tile_cols.shape[1]), tiles_t, tile_cols,
+                            np.asarray(tile_idx, np.int32))
+
+
+def session_from_numpy(n: int, edges: np.ndarray, ranks: np.ndarray,
+                       config: Optional[EngineConfig] = None,
+                       device="cuda") -> PageRankSession:
+    """A port session over the graph ``(n, edges)`` (self-loops excluded,
+    as ``HostGraph.edges``) serving ``ranks`` (length n or n_pad) — the
+    state of a JAX ``PageRankSession`` (``hg.n``, ``hg.edges``,
+    ``np.asarray(sess.R)``)."""
+    return PageRankSession.from_graph(
+        HostGraph(n, np.asarray(edges, np.int64)), config=config,
+        r0=np.asarray(ranks), device=device)

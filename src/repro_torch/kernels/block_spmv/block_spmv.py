@@ -1,0 +1,328 @@
+"""Block-sparse tile SpMV kernels: hand-written CUDA for Hopper, plus their
+plain PyTorch versions.
+
+Ports ``src/repro/kernels/block_spmv/block_spmv.py``.  The two TPU kernels
+there (``block_spmv_pallas`` and ``block_spmv_active_pallas``) become
+
+* :func:`block_spmv_cuda` / :func:`block_spmv_active_cuda` — wrappers around
+  the CUDA C++ kernels in ``csrc/block_spmv.cu`` (``sm_90a``), built with
+  ``nvcc`` at first use into ``build/repro_torch_kernels/`` (keyed by a hash
+  of the source) and bound through ``ctypes``;
+* :func:`block_spmv_plain` / :func:`block_spmv_active_plain` — gather +
+  batched matvec over the same layout (the analogue of
+  ``ops._block_spmv_xla`` / ``ops._block_spmv_active_xla``).
+
+:func:`tile_spmv` / :func:`tile_spmv_active` pick between them by the device
+of the tensors they are given: a CUDA tensor always goes to the kernel (a
+build or launch failure raises; nothing falls back), a CPU tensor to the
+plain version, anything else raises.
+
+Semirings: ``sum`` (``y = A @ x``) and ``or`` (``y = 1`` where any slot's
+partial product is positive, else 0 — a 0/1 indicator whatever the tile
+values).  Slots whose ``tile_cols`` entry is −1 contribute nothing wherever
+they sit in the row.  The active variants compute only the row-blocks named
+in ``active_ids`` (−1 entries are skipped); the CUDA kernel leaves the rows of
+every other block undefined, so callers mask them.
+
+Each CUDA wrapper counts its launches in a plain ``launches`` attribute
+(``block_spmv_cuda.launches``) — a run resets and reads it to show that its
+path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+SEMIRINGS = ("sum", "or")
+_KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+MAX_BLOCK = 256
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "block_spmv.cu"
+_REPO_ROOT = Path(__file__).resolve().parents[4]
+BUILD_DIR = _REPO_ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype: f64 for f64 inputs, f32 for f32 and bf16."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# build + bind
+# ---------------------------------------------------------------------------
+
+class _Library:
+    """The built kernel library of this process (built or loaded once)."""
+    lib: Optional[ctypes.CDLL] = None
+    builds = 0                 # nvcc runs + loads made by this process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA tile-SpMV kernels are built from "
+        f"{_SRC} at first use and need the CUDA toolkit on PATH")
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use, keyed by a hash of the source) and load the
+    kernel library.  Raises if the build fails; never falls back."""
+    if _Library.lib is not None:
+        return _Library.lib
+    src = _SRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libblock_spmv_{key}.so"
+    if not so.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {_SRC}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)       # atomic: concurrent builders agree
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.block_spmv_launch.argtypes = [i32, i32, i32, i32, i32,
+                                      ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.block_spmv_launch.restype = i32
+    lib.block_spmv_active_launch.argtypes = [i32, i32, i32, i32, i32,
+                                             ptr, ptr, ptr, ptr, ptr, ptr,
+                                             ptr]
+    lib.block_spmv_active_launch.restype = i32
+    lib.block_spmv_error_string.argtypes = [i32]
+    lib.block_spmv_error_string.restype = ctypes.c_char_p
+    _Library.lib = lib
+    _Library.builds += 1
+    return lib
+
+
+def builds() -> int:
+    """Kernel-library builds/loads made by this process (the port's only
+    compile: 1 after the first CUDA launch, 0 on the CPU)."""
+    return _Library.builds
+
+
+def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.block_spmv_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
+                    semiring, active_ids=None):
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"semiring={semiring!r}; expected one of "
+                         f"{SEMIRINGS}")
+    if not 1 <= block <= MAX_BLOCK:
+        raise ValueError(f"block={block} outside [1, {MAX_BLOCK}]")
+    named = [("tile_idx", tile_idx), ("tile_cols", tile_cols),
+             ("tiles", tiles), ("x", x)]
+    if active_ids is not None:
+        named.append(("active_ids", active_ids))
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must lie on x's CUDA device "
+                             f"({x.device}), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in named:
+        if name in ("tile_idx", "tile_cols", "active_ids") \
+                and t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if tiles.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"tiles dtype {tiles.dtype} unsupported; expected "
+                         f"one of {list(_KERNEL_DTYPES)}")
+    if x.dtype != tiles.dtype:
+        raise ValueError(f"x dtype {x.dtype} must equal tiles dtype "
+                         f"{tiles.dtype}")
+    n_rb = tile_cols.shape[0]
+    if tile_cols.dim() != 2 or tile_cols.shape[1] != max_tiles:
+        raise ValueError(f"tile_cols shape {tuple(tile_cols.shape)} != "
+                         f"(n_rb, {max_tiles})")
+    if tile_idx.shape != (n_rb * max_tiles,):
+        raise ValueError(f"tile_idx shape {tuple(tile_idx.shape)} != "
+                         f"({n_rb * max_tiles},)")
+    if tiles.dim() != 3 or tiles.shape[1:] != (block, block):
+        raise ValueError(f"tiles shape {tuple(tiles.shape)} != "
+                         f"(cap, {block}, {block})")
+    if x.dim() != 1 or x.shape[0] % block:
+        raise ValueError(f"x shape {tuple(x.shape)} is not a whole number "
+                         f"of {block}-blocks")
+    if active_ids is not None and active_ids.dim() != 1:
+        raise ValueError("active_ids must be 1-D")
+    return n_rb
+
+
+def block_spmv_cuda(tile_idx: torch.Tensor, tile_cols: torch.Tensor,
+                    tiles: torch.Tensor, x: torch.Tensor, *, block: int,
+                    max_tiles: int, semiring: str = "sum") -> torch.Tensor:
+    """CUDA kernel #1: y [n_rb*B] = A @ x over every row-block's slot list
+    (replaces ``block_spmv_pallas``).  Raises on a non-CUDA operand."""
+    n_rb = _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
+                           semiring)
+    lib = library()
+    y = torch.empty(n_rb * block, dtype=x.dtype, device=x.device)
+    rc = lib.block_spmv_launch(
+        _KERNEL_DTYPES[tiles.dtype], SEMIRINGS.index(semiring), block,
+        max_tiles, n_rb, tile_idx.data_ptr(), tile_cols.data_ptr(),
+        tiles.data_ptr(), x.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(lib, rc, "block_spmv")
+    block_spmv_cuda.launches += 1
+    return y
+
+
+block_spmv_cuda.launches = 0
+
+
+def block_spmv_active_cuda(active_ids: torch.Tensor, tile_idx: torch.Tensor,
+                           tile_cols: torch.Tensor, tiles: torch.Tensor,
+                           x: torch.Tensor, *, block: int, max_tiles: int,
+                           semiring: str = "sum",
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """CUDA kernel #2: the row-blocks named in ``active_ids`` (−1 skipped)
+    of y = A @ x (replaces ``block_spmv_active_pallas``).  Rows of every
+    other block keep whatever ``out`` held (uninitialised memory when
+    ``out`` is None) — callers mask them."""
+    n_rb = _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
+                           semiring, active_ids)
+    if active_ids.shape[0] > n_rb:
+        raise ValueError(f"active_ids length {active_ids.shape[0]} > n_rb "
+                         f"{n_rb}")
+    if out is None:
+        out = torch.empty(n_rb * block, dtype=x.dtype, device=x.device)
+    elif (out.shape != (n_rb * block,) or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous [n_rb*B] tensor of x's "
+                         "dtype on x's device")
+    lib = library()
+    rc = lib.block_spmv_active_launch(
+        _KERNEL_DTYPES[tiles.dtype], SEMIRINGS.index(semiring), block,
+        max_tiles, active_ids.shape[0], active_ids.data_ptr(),
+        tile_idx.data_ptr(), tile_cols.data_ptr(), tiles.data_ptr(),
+        x.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(lib, rc, "block_spmv_active")
+    block_spmv_active_cuda.launches += 1
+    return out
+
+
+block_spmv_active_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (same layout, same semantics)
+# ---------------------------------------------------------------------------
+
+_PLAIN_GATHER_BYTES = 1 << 26    # bound on one gathered [k, g, B, B] group
+
+
+def _rows_plain(rb: torch.Tensor, tile_idx: torch.Tensor,
+                tile_cols: torch.Tensor, tiles: torch.Tensor,
+                x: torch.Tensor, block: int, max_tiles: int,
+                semiring: str) -> torch.Tensor:
+    """[len(rb), B] products of the listed row-blocks: gather a group of
+    slots' tiles and x-slices, batched matvec, fold into the accumulator.
+    Groups of slots are sized so one gather stays under 64 MB whatever
+    ``len(rb)`` and ``max_tiles`` are."""
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"semiring={semiring!r}; expected one of "
+                         f"{SEMIRINGS}")
+    acc_t = _acc_dtype(x.dtype)
+    k = rb.shape[0]
+    xb = x.reshape(-1, block).to(acc_t)
+    cols = tile_cols.long()[rb]                            # [k, mt]
+    idx = tile_idx.long().reshape(-1, max_tiles)[rb]       # [k, mt]
+    acc = torch.zeros(k, block, dtype=acc_t, device=x.device)
+    tile_bytes = block * block * torch.finfo(acc_t).bits // 8
+    g = max(1, min(max_tiles, _PLAIN_GATHER_BYTES // max(1, k * tile_bytes)))
+    for j in range(0, max_tiles, g):
+        c = cols[:, j:j + g]
+        X = torch.where((c >= 0)[..., None], xb[c.clamp(min=0)], 0)
+        T = tiles[idx[:, j:j + g]].to(acc_t)              # [k, g, B, B]
+        part = torch.matmul(T, X[..., None])[..., 0]       # [k, g, B]
+        if semiring == "sum":
+            acc += part.sum(dim=1)
+        else:
+            acc = torch.maximum(acc, part.clamp(max=1).amax(dim=1))
+    if semiring == "or":
+        acc = (acc > 0).to(acc_t)
+    return acc.to(x.dtype)
+
+
+def block_spmv_plain(tile_idx: torch.Tensor, tile_cols: torch.Tensor,
+                     tiles: torch.Tensor, x: torch.Tensor, *, block: int,
+                     max_tiles: int, semiring: str = "sum") -> torch.Tensor:
+    """Plain version of :func:`block_spmv_cuda` (the analogue of
+    ``ops._block_spmv_xla``)."""
+    n_rb = tile_cols.shape[0]
+    rb = torch.arange(n_rb, device=x.device)
+    return _rows_plain(rb, tile_idx, tile_cols, tiles, x, block, max_tiles,
+                       semiring).reshape(-1)
+
+
+def block_spmv_active_plain(active_ids: torch.Tensor, tile_idx: torch.Tensor,
+                            tile_cols: torch.Tensor, tiles: torch.Tensor,
+                            x: torch.Tensor, *, block: int, max_tiles: int,
+                            semiring: str = "sum") -> torch.Tensor:
+    """Plain version of :func:`block_spmv_active_cuda` (the analogue of
+    ``ops._block_spmv_active_xla``).  Rows of blocks outside the list come
+    back as zero here; callers must not rely on that."""
+    n_rb = tile_cols.shape[0]
+    ids = active_ids.long()
+    y = _rows_plain(ids.clamp(min=0), tile_idx, tile_cols, tiles, x, block,
+                    max_tiles, semiring)
+    out = torch.zeros(n_rb + 1, block, dtype=x.dtype, device=x.device)
+    out[torch.where(ids >= 0, ids, n_rb)] = y      # −1 slots → trash row
+    return out[:n_rb].reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# device dispatch
+# ---------------------------------------------------------------------------
+
+def _route(x: torch.Tensor) -> str:
+    if x.device.type == "cuda":
+        return "cuda"
+    if x.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"tile SpMV runs on CUDA (kernel) or CPU (plain "
+                     f"version); got a tensor on {x.device}")
+
+
+def tile_spmv(tile_idx, tile_cols, tiles, x, *, block: int, max_tiles: int,
+              semiring: str = "sum") -> torch.Tensor:
+    """Kernel #1 on a CUDA ``x``, its plain version on a CPU ``x``."""
+    fn = block_spmv_cuda if _route(x) == "cuda" else block_spmv_plain
+    return fn(tile_idx, tile_cols, tiles, x, block=block,
+              max_tiles=max_tiles, semiring=semiring)
+
+
+def tile_spmv_active(active_ids, tile_idx, tile_cols, tiles, x, *,
+                     block: int, max_tiles: int,
+                     semiring: str = "sum") -> torch.Tensor:
+    """Kernel #2 on a CUDA ``x``, its plain version on a CPU ``x``."""
+    fn = (block_spmv_active_cuda if _route(x) == "cuda"
+          else block_spmv_active_plain)
+    return fn(active_ids, tile_idx, tile_cols, tiles, x, block=block,
+              max_tiles=max_tiles, semiring=semiring)
