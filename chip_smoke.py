@@ -8,11 +8,15 @@ Phases, each of which raises (non-zero exit) on any failed check:
 
 1. device and build: the card's name and power limit, the CUDA tile-SpMV
    kernels built from ``src/repro_torch/kernels/block_spmv/csrc``;
-2. kernel parity: each kernel against its plain PyTorch version on the card
-   (sum and or semirings; f32, f64, bf16; B = 8, 64, 128; exact and padded
-   layouts and after an ``apply_delta``; the active kernel into a
-   NaN-poisoned output buffer, and a fused drive whose active-kernel outputs
-   are all poisoned must equal the clean drive exactly);
+2. kernel parity: each kernel (reading the packed nonzero index) against
+   its plain PyTorch version (reading the dense tiles) on the card (sum and
+   or semirings; f32, f64, bf16; B = 8, 64, 128; exact and padded layouts
+   and after an ``apply_delta``; the active kernel into a NaN-poisoned
+   output buffer, and a fused drive whose active-kernel outputs are all
+   poisoned must equal the clean drive exactly); then, after each batch of
+   a delta stream whose index refreshes and compacts, both kernels again,
+   two launches bit-identical, a −1 in the middle of the active list and a
+   device count ``n_active`` shorter than the list;
 3. main path: ``PageRankSession.from_graph`` over ``grid_road(1024)``
    (n = 1,048,576, a road network) in f64 at B = 64 with its cold solve,
    ``warmup()``, 8 ``df`` updates of ``random_batch(frac=1e-4,
@@ -20,9 +24,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
    baseline), then ``top_k(10)`` and a ``query``; the launch counters are
    zeroed just before and read just after; the final ranks are held to the
    port's ``numpy_reference`` on the final graph;
-4. each kernel timed at the main path's shapes beside its bound, its plain
-   version and the ``torch.sparse`` CSR product of the same matrix;
-5. one more df update under ``cProfile``: where its wall time goes.
+4. each kernel held to its plain version at the main path's shapes (the
+   or semiring of the active kernel too) and timed beside its bound (the
+   fewest bytes of the work over two encodings — CSR, or each nonzero's
+   value and 2-byte in-tile place with 8 bytes per live tile — plus x and
+   y, and its flops), the bytes the dense tiles would move
+   (``layout_bytes``), its plain version and the ``torch.sparse`` CSR
+   product of the same matrix; then one forced compaction of the packed
+   index at that size, timed, with how many df updates the tail's room
+   lasts;
+5. one more df update under ``cProfile``: where its wall time goes; and
+   one under ``torch.profiler``: the card's busy time in it (the sum of its
+   kernels' device time) against its wall time, i.e. the idle share.
 
 Prints the kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -31,6 +44,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,6 +64,7 @@ SIDE = 1024                      # grid_road(1024): n = 1,048,576
 BLOCK = 64
 TAU = 1e-10
 N_DF_UPDATES = 8
+HOLD_CYCLES = 200_000_000        # ≥ 80 ms at the H100's ≤ 1.98 GHz clock
 
 
 def _fail(msg: str) -> None:
@@ -63,15 +78,25 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _time_ms(fn, reps: int) -> float:
+    """Device time per call of ``reps`` back-to-back calls: the stream is
+    held by a sleep kernel while the host queues them, so the host's cost of
+    issuing a call (tens of microseconds for a wrapper's checks) does not
+    stand in for a short kernel's device time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    queued_s = time.perf_counter() - t0
     end.synchronize()
+    _check(queued_s < HOLD_CYCLES / 2.5e9, f"queueing {reps} calls took "
+           f"{queued_s * 1e3:.1f} ms, longer than the sleep that holds the "
+           "stream: lower reps")
     return start.elapsed_time(end) / reps
 
 
@@ -120,7 +145,8 @@ def _parity(bsk, ops, rng) -> dict:
                         kw = dict(block=B, max_tiles=mat.max_tiles,
                                   semiring=sr)
                         args = (mat.tile_idx, mat.tile_cols, mat.tiles, xx)
-                        y = bsk.block_spmv_cuda(*args, **kw).double()
+                        kargs = (mat.tile_idx, mat.tile_cols, mat.index, xx)
+                        y = bsk.block_spmv_cuda(*kargs, **kw).double()
                         yp = bsk.block_spmv_plain(*args, **kw).double()
                         err = float((y - yp).abs().max())
                         _check(bool(torch.allclose(y, yp, rtol=tol,
@@ -134,7 +160,7 @@ def _parity(bsk, ops, rng) -> dict:
                         poisoned = torch.full((mat.n_rb * B,), float("nan"),
                                               dtype=dt, device="cuda")
                         ya = bsk.block_spmv_active_cuda(
-                            ids, *args, out=poisoned, **kw).double()
+                            ids, *kargs, out=poisoned, **kw).double()
                         yap = bsk.block_spmv_active_plain(
                             ids, *args, **kw).double()
                         _check(bool(torch.isnan(ya[~act_rows]).all()),
@@ -156,6 +182,93 @@ def _parity(bsk, ops, rng) -> dict:
     return worst
 
 
+def _active_rows(ids: np.ndarray, n_rb: int, B: int) -> torch.Tensor:
+    live = np.zeros(n_rb, bool)
+    live[ids[ids >= 0]] = True
+    return torch.from_numpy(np.repeat(live, B)).cuda()
+
+
+def _packed_cases(bsk, ops, rng) -> dict:
+    """Both kernels against their plain versions after every batch of a
+    delta stream whose index refresh must compact at least once (f64 and
+    f32, B = 64 and 16); two launches bit-identical; a −1 in the middle of
+    the active list; a device count ``n_active`` shorter than the list,
+    whose later entries must stay unwritten."""
+    worst = {"block_spmv": 0.0, "block_spmv_active": 0.0}
+    n = 1500
+    cases = compactions = refreshes = 0
+    for dt, B in ((torch.float64, 64), (torch.float32, 16)):
+        tol = TOLS[str(dt).split(".")[1]]
+        mat = ops.build_block_sparse(rng.integers(0, n, 12000),
+                                     rng.integers(0, n, 12000), n, n,
+                                     block=B, dtype=dt, padded=True,
+                                     device="cuda")
+        for size in (20, 20, 3000, 20, 3000, 20):
+            tail0, e_cap0 = mat.index.tail, mat.index.entry_capacity
+            mat = ops.apply_delta(mat, rng.integers(0, n, size),
+                                  rng.integers(0, n, size),
+                                  np.where(rng.random(size) < 0.3, -1.0, 1.0))
+            if (mat.index.tail < tail0
+                    or mat.index.entry_capacity != e_cap0):
+                compactions += 1
+            else:
+                refreshes += 1
+            x = ops._pad_x(mat, torch.from_numpy(rng.random(n)).to(dt)
+                           .cuda())
+            kw = dict(block=B, max_tiles=mat.max_tiles, semiring="sum")
+            args = (mat.tile_idx, mat.tile_cols, mat.tiles, x)
+            kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
+            y = bsk.block_spmv_cuda(*kargs, **kw)
+            _check(bool(torch.equal(y, bsk.block_spmv_cuda(*kargs, **kw))),
+                   "two block_spmv launches differ")
+            yp = bsk.block_spmv_plain(*args, **kw)
+            err = float((y - yp).abs().max())
+            _check(bool(torch.allclose(y, yp, rtol=tol, atol=tol)),
+                   f"block_spmv after a delta stream: max abs err {err}")
+            worst["block_spmv"] = max(worst["block_spmv"], err)
+            # a −1 in the middle of the list, then a count that stops the
+            # walk before the list's last real entries
+            pick = rng.choice(mat.n_rb, 8, replace=False).astype(np.int32)
+            ids_h = np.full(mat.n_rb, -1, np.int32)
+            ids_h[:3], ids_h[4:9] = pick[:3], pick[3:]
+            for count in (None, 6):
+                ids = torch.from_numpy(ids_h).cuda()
+                n_act = (None if count is None else
+                         torch.tensor([count], dtype=torch.int64,
+                                      device="cuda"))
+                seen = ids_h if count is None else ids_h[:count]
+                runs = [bsk.block_spmv_active_cuda(
+                    ids, *kargs, n_active=n_act, **kw,
+                    out=torch.full((mat.n_rb * B,), float("nan"), dtype=dt,
+                                   device="cuda")) for _ in range(2)]
+                _check(bool(torch.equal(runs[0].nan_to_num(-7.0),
+                                        runs[1].nan_to_num(-7.0))),
+                       "two block_spmv_active launches differ")
+                ya = runs[0]
+                yap = bsk.block_spmv_active_plain(ids, *args, **kw)
+                rows = _active_rows(seen, mat.n_rb, B)
+                _check(bool(torch.isnan(ya[~rows]).all()),
+                       f"active kernel (n_active={count}) wrote a row "
+                       "outside its list")
+                err = float((ya[rows] - yap[rows]).abs().max())
+                _check(bool(torch.allclose(ya[rows], yap[rows], rtol=tol,
+                                           atol=tol)),
+                       f"block_spmv_active n_active={count}: max abs err "
+                       f"{err}")
+                worst["block_spmv_active"] = max(
+                    worst["block_spmv_active"], err)
+            cases += 1
+    torch.cuda.synchronize()
+    _check(compactions >= 1 and refreshes >= 1,
+           f"the delta stream gave {compactions} compactions and "
+           f"{refreshes} in-place refreshes; both are needed")
+    print(f"packed-index cases: {cases} delta batches ({refreshes} "
+          f"refreshes, {compactions} compactions), bit-identical repeats, "
+          f"-1 mid-list and a short n_active passed; worst abs err {worst}",
+          flush=True)
+    return worst
+
+
 def _poisoned_drive_matches(bsk, pe) -> None:
     """A fused DF drive in which every active-kernel output starts as NaN
     must equal the clean drive bit for bit: no caller reads the rows of
@@ -174,11 +287,12 @@ def _poisoned_drive_matches(bsk, pe) -> None:
 
     real = bsk.tile_spmv_active
 
-    def poisoned(active_ids, tile_idx, tile_cols, tiles, x, **kw):
+    def poisoned(active_ids, tile_idx, tile_cols, tiles, x, *, index,
+                 **kw):
         out = torch.full((tile_cols.shape[0] * kw["block"],), float("nan"),
                          dtype=x.dtype, device=x.device)
         return bsk.block_spmv_active_cuda(active_ids, tile_idx, tile_cols,
-                                          tiles, x, out=out, **kw)
+                                          index, x, out=out, **kw)
 
     bsk.tile_spmv_active = poisoned      # every active launch of the drive
     try:
@@ -211,63 +325,124 @@ def _csr(rows: np.ndarray, cols: np.ndarray, n_rows: int, n_cols: int):
             size=(n_rows, n_cols), check_invariants=False)
 
 
+def _bound(work_bytes: int, flops: int) -> tuple:
+    t_bytes, t_ops = work_bytes / HBM_BYTES_PER_S, flops / F64_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _work_bytes(nnz: int, rows: int, live_tiles: int, item: int) -> int:
+    """The fewest bytes that hold ``nnz`` nonzeros of ``rows`` rows in
+    ``live_tiles`` tiles, over two encodings: CSR (value, 4-byte column
+    index, rows + 1 4-byte row pointers) or packed (value, 2-byte in-tile
+    place, a 4-byte offset and count per live tile).  x and y are extra."""
+    return min(nnz * (item + 4) + (rows + 1) * 4,
+               nnz * (item + 2) + live_tiles * 8)
+
+
 def _time_kernels(bsk, ops, sess, rng) -> list:
+    """Both kernels at the main path's shapes, held to their plain versions.
+    The bound counts the work, whatever layout implements it: the matrix in
+    the fewer bytes of two encodings (:func:`_work_bytes`), the x entries
+    read once, y written once (plus the id list for #2); flops 2 per
+    nonzero.  ``layout_bytes`` is what the dense tiles would move (the
+    bound the dense-tile kernels were held to)."""
     mat = sess.inc.mat
     B, mt, n_rb = mat.block, mat.max_tiles, mat.n_rb
     item = mat.tiles.element_size()
     live = mat.tile_cols_h >= 0                       # [n_rb, mt]
+    tid = mat.tile_idx_h.reshape(n_rb, mt)
+    cnt_h = mat.index.cnt.cpu().numpy().astype(np.int64)
     deg = sess._out_deg.clamp(min=1).to(torch.float64)
     x = ops._pad_x(mat, torch.where(sess.valid, sess.R / deg, 0.0))
     src, dst = sess.hg.snapshot(block_size=B).in_edges_host()
     kw = dict(block=B, max_tiles=mt, semiring="sum")
     args = (mat.tile_idx, mat.tile_cols, mat.tiles, x)
+    kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
     table = []
 
     # kernel #1: every row-block (the all-active pull of cold/nd/static)
-    y = bsk.block_spmv_cuda(*args, **kw)
+    y = bsk.block_spmv_cuda(*kargs, **kw)
     yp = bsk.block_spmv_plain(*args, **kw)
     err1 = float((y - yp).abs().max())
+    _check(bool(torch.allclose(y, yp, rtol=TOLS["float64"],
+                               atol=TOLS["float64"])),
+           f"block_spmv at n = {sess.n}: max abs err {err1}")
     n_live = int(live.sum())
-    bytes1 = (n_live * B * B * item + 2 * n_rb * mt * 4
-              + x.numel() * item + n_rb * B * item)
-    flops1 = 2 * n_live * B * B
+    nnz = int(cnt_h[tid[live]].sum())
+    _check(nnz == len(src), f"index holds {nnz} nonzeros, graph {len(src)}")
+    work1 = (_work_bytes(nnz, sess.n_pad, n_live, item) + x.numel() * item
+             + n_rb * B * item)
+    layout1 = (n_live * B * B * item + 2 * n_rb * mt * 4 + x.numel() * item
+               + n_rb * B * item)
+    index_read = (nnz * (item + 2) + n_live * 8 + 2 * n_rb * mt * 4
+                  + x.numel() * item + n_rb * B * item)
     A = _csr(dst, src, sess.n_pad, sess.n_pad)
     xv = x[:sess.n_pad]
     lib1 = _time_ms(lambda: torch.mv(A, xv), 20)
     yl = torch.mv(A, xv)
     _check(bool(torch.allclose(y[:sess.n_pad], yl, rtol=1e-12, atol=1e-15)),
            "block_spmv disagrees with the CSR product")
+    bound1, by1 = _bound(work1, 2 * nnz)
     table.append(dict(
         name="block_spmv", route="cuda",
         source="src/repro_torch/kernels/block_spmv/csrc/block_spmv.cu",
         replaces="src/repro/kernels/block_spmv/block_spmv.py:80",
         max_abs_err=err1,
-        ms=_time_ms(lambda: bsk.block_spmv_cuda(*args, **kw), 20),
+        ms=_time_ms(lambda: bsk.block_spmv_cuda(*kargs, **kw), 50),
         plain_ms=_time_ms(lambda: bsk.block_spmv_plain(*args, **kw), 3),
-        bound_ms=max(bytes1 / HBM_BYTES_PER_S, flops1 / F64_FLOPS) * 1e3,
-        bound_by=("bytes" if bytes1 / HBM_BYTES_PER_S >= flops1 / F64_FLOPS
-                  else "operations"),
-        library_ms=lib1, shape=f"all {n_rb} row-blocks, {n_live} live "
-        f"tiles of {B}x{B} f64"))
+        bound_ms=bound1, bound_by=by1, library_ms=lib1,
+        work_bytes=work1, layout_bytes=layout1,
+        shape=f"all {n_rb} row-blocks, {n_live} live tiles of {B}x{B} f64, "
+        f"{nnz} nonzeros"))
+    print(f"packed index: {mat.index.nbytes / 1e6:.2f} MB on the card "
+          f"(entry capacity {mat.index.entry_capacity}, tail "
+          f"{mat.index.tail}); a full launch reads {index_read / 1e6:.2f} MB "
+          f"(index, slot tables, x, y) where the dense tiles would move "
+          f"{layout1 / 1e6:.2f} MB", flush=True)
 
-    # kernel #2: a 1 % frontier of row-blocks, one launch over the full list
+    # kernel #2: a 1 % frontier of row-blocks, one launch over the full
+    # list stopping at the device count, as the main path calls it
     k = max(1, n_rb // 100)
     act = np.sort(rng.choice(n_rb, size=k, replace=False))
     ids_h = np.full(n_rb, -1, np.int32)
     ids_h[:k] = act
     ids = torch.as_tensor(ids_h, device="cuda")
-    ya = bsk.block_spmv_active_cuda(ids, *args, **kw)
+    n_act = torch.tensor([k], dtype=torch.int64, device="cuda")
+    ya = bsk.block_spmv_active_cuda(ids, *kargs, n_active=n_act, **kw)
     yap = bsk.block_spmv_active_plain(ids, *args, **kw)
     rows_act = torch.as_tensor(np.repeat(act, B) * B
                                + np.tile(np.arange(B), k), device="cuda")
     err2 = float((ya[rows_act] - yap[rows_act]).abs().max())
+    _check(bool(torch.allclose(ya[rows_act], yap[rows_act],
+                               rtol=TOLS["float64"], atol=TOLS["float64"])),
+           f"block_spmv_active at n = {sess.n}: max abs err {err2}")
+    # the or semiring (the DF frontier expansion) on the same list: a 0/1
+    # indicator of ~5 % of the vertices, exact against the plain version
+    x_or = ops._pad_x(mat, torch.as_tensor(rng.random(sess.n_pad) < 0.05,
+                                           device="cuda").to(x.dtype))
+    kw_or = dict(kw, semiring="or")
+    yo = bsk.block_spmv_active_cuda(ids, mat.tile_idx, mat.tile_cols,
+                                    mat.index, x_or, n_active=n_act, **kw_or)
+    yop = bsk.block_spmv_active_plain(ids, mat.tile_idx, mat.tile_cols,
+                                      mat.tiles, x_or, **kw_or)
+    _check(bool(torch.equal(yo[rows_act], yop[rows_act])),
+           f"block_spmv_active (or) at n = {sess.n} differs from its plain "
+           "version")
+    _check(bool(((yo[rows_act] == 0) | (yo[rows_act] == 1)).all())
+           and bool(yo[rows_act].any()),
+           f"or semiring at n = {sess.n} must give a 0/1 indicator with "
+           "some ones")
     live_a = live[act]
     n_live_a = int(live_a.sum())
-    n_xcb = len(np.unique(mat.tile_cols_h[act][live_a]))
-    bytes2 = (n_live_a * B * B * item + n_rb * 4 + 2 * k * mt * 4
-              + n_xcb * B * item + k * B * item)
-    flops2 = 2 * n_live_a * B * B
+    nnz_a = int(cnt_h[tid[act][live_a]].sum())
     in_act = np.isin(dst // B, act)
+    n_xa = len(np.unique(src[in_act]))
+    n_xcb = len(np.unique(mat.tile_cols_h[act][live_a]))
+    work2 = (_work_bytes(nnz_a, k * B, n_live_a, item) + n_xa * item
+             + k * B * item + k * 4)
+    layout2 = (n_live_a * B * B * item + n_rb * 4 + 2 * k * mt * 4
+               + n_xcb * B * item + k * B * item)
     pos = np.full(n_rb, -1, np.int64)
     pos[act] = np.arange(k)
     sub_rows = pos[dst[in_act] // B] * B + dst[in_act] % B
@@ -276,26 +451,70 @@ def _time_kernels(bsk, ops, sess, rng) -> list:
     _check(bool(torch.allclose(ya[rows_act], torch.mv(A_sub, xv),
                                rtol=1e-12, atol=1e-15)),
            "block_spmv_active disagrees with the CSR product")
+    bound2, by2 = _bound(work2, 2 * nnz_a)
     table.append(dict(
         name="block_spmv_active", route="cuda",
         source="src/repro_torch/kernels/block_spmv/csrc/block_spmv.cu",
         replaces="src/repro/kernels/block_spmv/block_spmv.py:117",
         max_abs_err=err2,
-        ms=_time_ms(lambda: bsk.block_spmv_active_cuda(ids, *args, **kw),
-                    50),
+        ms=_time_ms(lambda: bsk.block_spmv_active_cuda(
+            ids, *kargs, n_active=n_act, **kw), 200),
         plain_ms=_time_ms(
             lambda: bsk.block_spmv_active_plain(ids, *args, **kw), 3),
-        bound_ms=max(bytes2 / HBM_BYTES_PER_S, flops2 / F64_FLOPS) * 1e3,
-        bound_by=("bytes" if bytes2 / HBM_BYTES_PER_S >= flops2 / F64_FLOPS
-                  else "operations"),
-        library_ms=lib2, shape=f"{k} of {n_rb} row-blocks (1 %), "
-        f"{n_live_a} live tiles of {B}x{B} f64"))
+        bound_ms=bound2, bound_by=by2, library_ms=lib2,
+        work_bytes=work2, layout_bytes=layout2,
+        shape=f"{k} of {n_rb} row-blocks (1 %), {n_live_a} live tiles of "
+        f"{B}x{B} f64, {nnz_a} nonzeros"))
     full_ids = torch.arange(n_rb, dtype=torch.int32, device="cuda")
-    t_full = _time_ms(lambda: bsk.block_spmv_active_cuda(full_ids, *args,
-                                                          **kw), 20)
-    print(f"block_spmv_active over the full list: {t_full:.4f} ms "
-          f"(bound {bytes1 / HBM_BYTES_PER_S * 1e3:.4f} ms)", flush=True)
+    n_full = torch.tensor([n_rb], dtype=torch.int64, device="cuda")
+    t_full = _time_ms(lambda: bsk.block_spmv_active_cuda(
+        full_ids, *kargs, n_active=n_full, **kw), 50)
+    t_nocount = _time_ms(lambda: bsk.block_spmv_active_cuda(ids, *kargs,
+                                                            **kw), 200)
+    print(f"block_spmv_active over the full list: {t_full:.4f} ms (bound "
+          f"{_bound(work1 + n_rb * 4, 2 * nnz)[0]:.4f} ms); at the 1 % "
+          f"frontier without the device count (walks all {n_rb} entries): "
+          f"{t_nocount:.4f} ms; the or semiring at the 1 % frontier equals "
+          f"its plain version", flush=True)
     return table
+
+
+def _time_compaction(bsk, ops, mat, growth: list) -> None:
+    """One compaction of the packed index at the main path's size, forced
+    the way a stream meets it: a batch's refresh finds the tail full and
+    rebuilds the index from the tile pool (a chunked scan of the whole pool
+    and one host sync).  The rebuilt index must give the kernel's result bit
+    for bit.  ``growth`` is the entries each df update re-packed at the
+    tail; their mean says how many updates the tail's room lasts."""
+    x = torch.rand(mat.n_cb * mat.block, dtype=mat.tiles.dtype,
+                   device="cuda")
+    kw = dict(block=mat.block, max_tiles=mat.max_tiles, semiring="sum")
+    y = bsk.block_spmv_cuda(mat.tile_idx, mat.tile_cols, mat.index, x, **kw)
+    one = np.array([int(mat.tile_idx_h[mat.tile_cols_h.reshape(-1) >= 0][0])])
+    times = []
+    for _ in range(2):
+        full = dataclasses.replace(mat.index, tail=mat.index.entry_capacity,
+                                   bound_h=mat.index.bound_h.copy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = ops.refresh_index(full, mat.tiles, one, np.zeros(1, np.int64),
+                                  np.zeros(1, np.int64))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _check(fresh is not full and fresh.tail == int(mat.index.cnt.sum()),
+           "the forced refresh did not compact to the live nonzeros")
+    _check(bool(torch.equal(y, bsk.block_spmv_cuda(
+        mat.tile_idx, mat.tile_cols, fresh, x, **kw))),
+        "block_spmv over the compacted index differs")
+    per_update = float(np.mean(growth))
+    room = fresh.entry_capacity - fresh.tail
+    print(f"compaction at n_pad = {mat.n_rows} (tile pool "
+          f"{mat.tiles.nbytes / 1e9:.2f} GB, {fresh.tail} entries into a "
+          f"capacity of {fresh.entry_capacity}): "
+          f"{times[0]:.2f} ms, again {times[1]:.2f} ms; df updates re-pack "
+          f"{per_update:.0f} entries each (max {max(growth)}), so after a "
+          f"compaction the tail's room of {room} entries lasts about "
+          f"{room / per_update:.0f} df updates", flush=True)
 
 
 def _profile_update(sess, random_batch) -> None:
@@ -322,6 +541,36 @@ def _profile_update(sess, random_batch) -> None:
     for tt, where, nc in rows:
         print(f"  {tt * 1e3:9.2f} ms {100 * tt / wall:5.1f} %  {nc:6d} calls"
               f"  {where}", flush=True)
+
+
+def _device_busy(sess, random_batch) -> None:
+    """One more df update under ``torch.profiler``: the card's busy time
+    (device time of every kernel it ran, one stream, so no overlap) against
+    the update's wall time under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dels, ins = random_batch(sess.hg, 1e-4, seed=1000, deletions_frac=0.2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.update(dels, ins)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    if busy_ms == 0:
+        print("device busy time of one df update: not measured (the "
+              "profiler recorded no device time)", flush=True)
+        return
+    print(f"device busy time of one df update: {busy_ms:.2f} ms of "
+          f"{wall_ms:.2f} ms wall under the profiler (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}); top kernels by device time:",
+          flush=True)
+    for ms, count, key in kernels[:6]:
+        print(f"  {ms:8.3f} ms {count:6d} launches  {key[:90]}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +613,7 @@ def main() -> None:
     # -- phase 2: kernel parity ---------------------------------------------
     rng = np.random.default_rng(2024)
     _parity(bsk, ops, rng)
+    _packed_cases(bsk, ops, rng)
     _poisoned_drive_matches(bsk, pe)
 
     # -- phase 3: main path --------------------------------------------------
@@ -382,15 +632,22 @@ def main() -> None:
     mat = sess.inc.mat
     print(f"open + cold solve: {t_open:.2f} s; tile pool {mat.n_tiles()} "
           f"live tiles, capacity {mat.tile_capacity} "
-          f"({mat.tiles.nbytes / 1e9:.2f} GB), max_tiles {mat.max_tiles}; "
+          f"({mat.tiles.nbytes / 1e9:.2f} GB), max_tiles {mat.max_tiles}, "
+          f"packed index {mat.index.nbytes / 1e6:.2f} MB "
+          f"({mat.index.tail} entries of {mat.index.entry_capacity}); "
           f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
     sess.warmup()
-    df = []
+    df, growth = [], []
     for i in range(N_DF_UPDATES):
         dels, ins = random_batch(sess.hg, 1e-4, seed=100 + i,
                                  deletions_frac=0.2)
+        idx = sess.inc.mat.index            # refreshed in place
+        tail0, e_cap0 = idx.tail, idx.entry_capacity
         res = sess.update(dels, ins, variant="df")
         torch.cuda.synchronize()
+        idx = sess.inc.mat.index
+        if idx.entry_capacity == e_cap0 and idx.tail > tail0:
+            growth.append(idx.tail - tail0)         # not a compaction
         df.append(res)
         print(f"df update {i}: {len(dels)} del + {len(ins)} ins, "
               f"{res.wall_time_s * 1e3:.2f} ms, sweeps {res.stats.sweeps}, "
@@ -420,6 +677,8 @@ def main() -> None:
 
     _check(all(r.converged for r in df) and nd.converged,
            "an update did not converge")
+    _check(sess.report().retraces_post_warmup == 0,
+           "a kernel was built after warmup")
     _check(after_df[1] > cold[1], "df updates launched no block_spmv_active")
     _check(launches["block_spmv"] > after_df[0],
            "the nd update launched no block_spmv")
@@ -447,15 +706,21 @@ def main() -> None:
 
     # -- phase 4: kernel timing at the main path's shapes -------------------
     table = _time_kernels(bsk, ops, sess, rng)
+    _check(len(growth) > 0, "no df update re-packed at the index's tail")
+    _time_compaction(bsk, ops, sess.inc.mat, growth)
     for row in table:
         row["launches"] = launches[row["name"]]
         print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}"
-              f" ms by {row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
-              f"torch.sparse {row['library_ms']:.4f} ms, max abs err "
-              f"{row['max_abs_err']:.3e}, {row['shape']}", flush=True)
+              f" ms by {row['bound_by']}: {row['work_bytes']} work bytes; "
+              f"layout_bytes {row['layout_bytes']}), plain "
+              f"{row['plain_ms']:.3f} ms, torch.sparse "
+              f"{row['library_ms']:.4f} ms, max abs err "
+              f"{row['max_abs_err']:.3e}, {row['shape']} [{smi}]",
+              flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     _profile_update(sess, random_batch)
+    _device_busy(sess, random_batch)
     sess.close()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

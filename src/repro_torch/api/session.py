@@ -20,9 +20,10 @@ in O(batch) per update; every update re-enters the fused driver of
 :mod:`repro_torch.core.pallas_engine`.
 
 One ordering differs from the reference, because the port patches the tile
-pool in place: the DF seed's OR pass over G^{t-1} runs *before* the tile
-scatter, and its pass over G^t after it (the JAX session keeps both pools
-and runs both passes after the scatter).  The marking is the same.
+pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
+*before* the tile scatter and index refresh, on the same stream, and its
+pass over G^t after them (the JAX session keeps both pools and runs both
+passes after the scatter).  The marking is the same.
 """
 from __future__ import annotations
 
@@ -96,9 +97,10 @@ def _seed_affected(mat_prev: ops.BlockSparse, mat_new: ops.BlockSparse,
     out-neighbors of every update source in G^{t-1} *and* G^t, through both
     graphs' pull matrices, launching only over the candidate row-blocks
     (``bmat`` is the post-batch tile presence, a superset of the pre-batch
-    one).  ``mat_prev`` must still hold the pre-batch tile values; the
-    session, whose tile pool is patched in place, runs the two passes
-    around the patch instead of calling this."""
+    one).  ``mat_prev`` must still hold the pre-batch tile values and the
+    pre-batch packed index (the CUDA kernels read the index); the session,
+    whose tile pool and index ``apply_delta`` patches in place, runs the two
+    passes around the patch instead of calling this."""
     seed = _seed_sources(bmat, batch, valid, block_size=block_size)
     hit = _seed_pass(mat_prev, seed) | _seed_pass(mat_new, seed)
     return _seed_mask(hit, seed, valid, block_size=block_size)
@@ -458,6 +460,7 @@ class PageRankSession:
         return {
             "ranks": self.R.nbytes + self.valid.nbytes,
             "tile_pool": mat.tiles.nbytes,
+            "packed_index": mat.index.nbytes,
             "slot_tables": mat.tile_cols.nbytes + mat.tile_idx.nbytes,
             "operand_mirrors": (self._out_deg.nbytes + self._rb_in.nbytes
                                 + self._rb_out.nbytes + self._bmat.nbytes),

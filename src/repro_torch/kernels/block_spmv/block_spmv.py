@@ -7,9 +7,11 @@ there (``block_spmv_pallas`` and ``block_spmv_active_pallas``) become
 * :func:`block_spmv_cuda` / :func:`block_spmv_active_cuda` — wrappers around
   the CUDA C++ kernels in ``csrc/block_spmv.cu`` (``sm_90a``), built with
   ``nvcc`` at first use into ``build/repro_torch_kernels/`` (keyed by a hash
-  of the source) and bound through ``ctypes``;
+  of the source) and bound through ``ctypes``.  They read the pool's packed
+  nonzero index (``ops.PackedIndex``: the tensors ``off``, ``cnt``,
+  ``row``, ``col``, ``val``), never the dense tiles;
 * :func:`block_spmv_plain` / :func:`block_spmv_active_plain` — gather +
-  batched matvec over the same layout (the analogue of
+  batched matvec over the dense tiles (the analogue of
   ``ops._block_spmv_xla`` / ``ops._block_spmv_active_xla``).
 
 :func:`tile_spmv` / :func:`tile_spmv_active` pick between them by the device
@@ -21,8 +23,9 @@ Semirings: ``sum`` (``y = A @ x``) and ``or`` (``y = 1`` where any slot's
 partial product is positive, else 0 — a 0/1 indicator whatever the tile
 values).  Slots whose ``tile_cols`` entry is −1 contribute nothing wherever
 they sit in the row.  The active variants compute only the row-blocks named
-in ``active_ids`` (−1 entries are skipped); the CUDA kernel leaves the rows of
-every other block undefined, so callers mask them.
+in ``active_ids`` (−1 entries are skipped; on the card, entries from the
+device count ``n_active`` on are not computed); the CUDA kernel leaves the
+rows of every other block undefined, so callers mask them.
 
 Each CUDA wrapper counts its launches in a plain ``launches`` attribute
 (``block_spmv_cuda.launches``) — a run resets and reads it to show that its
@@ -101,12 +104,11 @@ def library() -> ctypes.CDLL:
         os.replace(tmp, so)       # atomic: concurrent builders agree
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.block_spmv_launch.argtypes = [i32, i32, i32, i32, i32,
-                                      ptr, ptr, ptr, ptr, ptr, ptr]
+    # (dtype, semiring, B, mt, n_list), [active_ids, n_active,] tile_idx,
+    # tile_cols, the index's off, cnt, row, col, val, x, y, stream
+    lib.block_spmv_launch.argtypes = [i32] * 5 + [ptr] * 10
     lib.block_spmv_launch.restype = i32
-    lib.block_spmv_active_launch.argtypes = [i32, i32, i32, i32, i32,
-                                             ptr, ptr, ptr, ptr, ptr, ptr,
-                                             ptr]
+    lib.block_spmv_active_launch.argtypes = [i32] * 5 + [ptr] * 12
     lib.block_spmv_active_launch.restype = i32
     lib.block_spmv_error_string.argtypes = [i32]
     lib.block_spmv_error_string.restype = ctypes.c_char_p
@@ -127,33 +129,46 @@ def _check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
 
 
-def _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
-                    semiring, active_ids=None):
+_INDEX_DTYPES = {"off": torch.int32, "cnt": torch.int32,
+                 "row": torch.uint8, "col": torch.uint8}
+
+
+def _check_operands(tile_idx, tile_cols, index, x, block, max_tiles,
+                    semiring, active_ids=None, n_active=None):
     if semiring not in SEMIRINGS:
         raise ValueError(f"semiring={semiring!r}; expected one of "
                          f"{SEMIRINGS}")
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"block={block} outside [1, {MAX_BLOCK}]")
-    named = [("tile_idx", tile_idx), ("tile_cols", tile_cols),
-             ("tiles", tiles), ("x", x)]
+    if x.device.type != "cuda":
+        raise ValueError(f"x must lie on a CUDA device, got {x.device}")
+    if index is None:
+        raise ValueError("the CUDA kernels read the packed index; pass the "
+                         "BlockSparse's index")
+    named = [("tile_idx", tile_idx), ("tile_cols", tile_cols), ("x", x)]
+    named += [(f, getattr(index, f)) for f in (*_INDEX_DTYPES, "val")]
     if active_ids is not None:
         named.append(("active_ids", active_ids))
+    if n_active is not None:
+        named.append(("n_active", n_active))
     for name, t in named:
-        if t.device.type != "cuda" or t.device != x.device:
+        if t.device != x.device:
             raise ValueError(f"{name} must lie on x's CUDA device "
                              f"({x.device}), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    want = {"tile_idx": torch.int32, "tile_cols": torch.int32,
+            "active_ids": torch.int32, "n_active": torch.int64,
+            **_INDEX_DTYPES}
     for name, t in named:
-        if name in ("tile_idx", "tile_cols", "active_ids") \
-                and t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-    if tiles.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"tiles dtype {tiles.dtype} unsupported; expected "
-                         f"one of {list(_KERNEL_DTYPES)}")
-    if x.dtype != tiles.dtype:
-        raise ValueError(f"x dtype {x.dtype} must equal tiles dtype "
-                         f"{tiles.dtype}")
+        if name in want and t.dtype != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {t.dtype}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"x dtype {x.dtype} unsupported; expected one of "
+                         f"{list(_KERNEL_DTYPES)}")
+    if index.val.dtype != x.dtype:
+        raise ValueError(f"index values dtype {index.val.dtype} must equal "
+                         f"x dtype {x.dtype}")
     n_rb = tile_cols.shape[0]
     if tile_cols.dim() != 2 or tile_cols.shape[1] != max_tiles:
         raise ValueError(f"tile_cols shape {tuple(tile_cols.shape)} != "
@@ -161,30 +176,42 @@ def _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
     if tile_idx.shape != (n_rb * max_tiles,):
         raise ValueError(f"tile_idx shape {tuple(tile_idx.shape)} != "
                          f"({n_rb * max_tiles},)")
-    if tiles.dim() != 3 or tiles.shape[1:] != (block, block):
-        raise ValueError(f"tiles shape {tuple(tiles.shape)} != "
-                         f"(cap, {block}, {block})")
+    entries = index.val.shape
+    if (index.off.dim() != 1 or index.cnt.shape != index.off.shape
+            or len(entries) != 1 or index.row.shape != entries
+            or index.col.shape != entries):
+        raise ValueError("packed index shapes disagree: off/cnt [cap], "
+                         "row/col/val [entries]")
     if x.dim() != 1 or x.shape[0] % block:
         raise ValueError(f"x shape {tuple(x.shape)} is not a whole number "
                          f"of {block}-blocks")
     if active_ids is not None and active_ids.dim() != 1:
         raise ValueError("active_ids must be 1-D")
+    if n_active is not None and n_active.numel() != 1:
+        raise ValueError("n_active must hold one count")
     return n_rb
 
 
-def block_spmv_cuda(tile_idx: torch.Tensor, tile_cols: torch.Tensor,
-                    tiles: torch.Tensor, x: torch.Tensor, *, block: int,
-                    max_tiles: int, semiring: str = "sum") -> torch.Tensor:
-    """CUDA kernel #1: y [n_rb*B] = A @ x over every row-block's slot list
-    (replaces ``block_spmv_pallas``).  Raises on a non-CUDA operand."""
-    n_rb = _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
+def _index_ptrs(index):
+    return (index.off.data_ptr(), index.cnt.data_ptr(),
+            index.row.data_ptr(), index.col.data_ptr(),
+            index.val.data_ptr())
+
+
+def block_spmv_cuda(tile_idx: torch.Tensor, tile_cols: torch.Tensor, index,
+                    x: torch.Tensor, *, block: int, max_tiles: int,
+                    semiring: str = "sum") -> torch.Tensor:
+    """CUDA kernel #1: y [n_rb*B] = A @ x over every row-block's slot list,
+    read from the packed ``index`` (replaces ``block_spmv_pallas``).  Raises
+    on a non-CUDA operand."""
+    n_rb = _check_operands(tile_idx, tile_cols, index, x, block, max_tiles,
                            semiring)
     lib = library()
     y = torch.empty(n_rb * block, dtype=x.dtype, device=x.device)
     rc = lib.block_spmv_launch(
-        _KERNEL_DTYPES[tiles.dtype], SEMIRINGS.index(semiring), block,
+        _KERNEL_DTYPES[x.dtype], SEMIRINGS.index(semiring), block,
         max_tiles, n_rb, tile_idx.data_ptr(), tile_cols.data_ptr(),
-        tiles.data_ptr(), x.data_ptr(), y.data_ptr(),
+        *_index_ptrs(index), x.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(lib, rc, "block_spmv")
     block_spmv_cuda.launches += 1
@@ -195,17 +222,20 @@ block_spmv_cuda.launches = 0
 
 
 def block_spmv_active_cuda(active_ids: torch.Tensor, tile_idx: torch.Tensor,
-                           tile_cols: torch.Tensor, tiles: torch.Tensor,
-                           x: torch.Tensor, *, block: int, max_tiles: int,
+                           tile_cols: torch.Tensor, index, x: torch.Tensor,
+                           *, block: int, max_tiles: int,
                            semiring: str = "sum",
-                           out: Optional[torch.Tensor] = None
+                           out: Optional[torch.Tensor] = None,
+                           n_active: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """CUDA kernel #2: the row-blocks named in ``active_ids`` (−1 skipped)
-    of y = A @ x (replaces ``block_spmv_active_pallas``).  Rows of every
-    other block keep whatever ``out`` held (uninitialised memory when
-    ``out`` is None) — callers mask them."""
-    n_rb = _check_operands(tile_idx, tile_cols, tiles, x, block, max_tiles,
-                           semiring, active_ids)
+    """CUDA kernel #2: the row-blocks named in ``active_ids`` (−1 skipped
+    wherever it sits) of y = A @ x, read from the packed ``index`` (replaces
+    ``block_spmv_active_pallas``).  ``n_active``, an int64 count on the
+    card, ends the walk of the list on the device (never read back).  Rows
+    of every other block keep whatever ``out`` held (uninitialised memory
+    when ``out`` is None) — callers mask them."""
+    n_rb = _check_operands(tile_idx, tile_cols, index, x, block, max_tiles,
+                           semiring, active_ids, n_active)
     if active_ids.shape[0] > n_rb:
         raise ValueError(f"active_ids length {active_ids.shape[0]} > n_rb "
                          f"{n_rb}")
@@ -217,9 +247,10 @@ def block_spmv_active_cuda(active_ids: torch.Tensor, tile_idx: torch.Tensor,
                          "dtype on x's device")
     lib = library()
     rc = lib.block_spmv_active_launch(
-        _KERNEL_DTYPES[tiles.dtype], SEMIRINGS.index(semiring), block,
+        _KERNEL_DTYPES[x.dtype], SEMIRINGS.index(semiring), block,
         max_tiles, active_ids.shape[0], active_ids.data_ptr(),
-        tile_idx.data_ptr(), tile_cols.data_ptr(), tiles.data_ptr(),
+        None if n_active is None else n_active.data_ptr(),
+        tile_idx.data_ptr(), tile_cols.data_ptr(), *_index_ptrs(index),
         x.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(lib, rc, "block_spmv_active")
@@ -311,18 +342,25 @@ def _route(x: torch.Tensor) -> str:
 
 
 def tile_spmv(tile_idx, tile_cols, tiles, x, *, block: int, max_tiles: int,
-              semiring: str = "sum") -> torch.Tensor:
-    """Kernel #1 on a CUDA ``x``, its plain version on a CPU ``x``."""
-    fn = block_spmv_cuda if _route(x) == "cuda" else block_spmv_plain
-    return fn(tile_idx, tile_cols, tiles, x, block=block,
-              max_tiles=max_tiles, semiring=semiring)
+              semiring: str = "sum", index=None) -> torch.Tensor:
+    """Kernel #1 over ``index`` on a CUDA ``x``, its plain version over
+    ``tiles`` on a CPU ``x``."""
+    if _route(x) == "cuda":
+        return block_spmv_cuda(tile_idx, tile_cols, index, x, block=block,
+                               max_tiles=max_tiles, semiring=semiring)
+    return block_spmv_plain(tile_idx, tile_cols, tiles, x, block=block,
+                            max_tiles=max_tiles, semiring=semiring)
 
 
 def tile_spmv_active(active_ids, tile_idx, tile_cols, tiles, x, *,
-                     block: int, max_tiles: int,
-                     semiring: str = "sum") -> torch.Tensor:
-    """Kernel #2 on a CUDA ``x``, its plain version on a CPU ``x``."""
-    fn = (block_spmv_active_cuda if _route(x) == "cuda"
-          else block_spmv_active_plain)
-    return fn(active_ids, tile_idx, tile_cols, tiles, x, block=block,
-              max_tiles=max_tiles, semiring=semiring)
+                     block: int, max_tiles: int, semiring: str = "sum",
+                     index=None, n_active=None) -> torch.Tensor:
+    """Kernel #2 over ``index`` on a CUDA ``x`` (stopping at the device
+    count ``n_active``), its plain version over ``tiles`` on a CPU ``x``."""
+    if _route(x) == "cuda":
+        return block_spmv_active_cuda(
+            active_ids, tile_idx, tile_cols, index, x, block=block,
+            max_tiles=max_tiles, semiring=semiring, n_active=n_active)
+    return block_spmv_active_plain(active_ids, tile_idx, tile_cols, tiles, x,
+                                   block=block, max_tiles=max_tiles,
+                                   semiring=semiring)

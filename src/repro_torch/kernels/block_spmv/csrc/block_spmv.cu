@@ -2,43 +2,70 @@
 // Dynamic Frontier seed and the frontier expansion of the stream session.
 //
 // Replaces the two TPU kernels of src/repro/kernels/block_spmv/block_spmv.py:
-//   block_spmv_kernel         <- block_spmv_pallas        (_kernel)
-//   block_spmv_active_kernel  <- block_spmv_active_pallas (_active_kernel)
+//   packed_spmv_kernel<.., ACTIVE = false>  <- block_spmv_pallas        (_kernel)
+//   packed_spmv_kernel<.., ACTIVE = true>   <- block_spmv_active_pallas (_active_kernel)
 //
-// Layout (shared with the JAX package): tiles [cap, B, B] dense B x B tiles;
-// tile_cols [n_rb, mt] int32 column-block of slot j of row-block i (-1 = empty
-// slot, anywhere in the row, not only trailing); tile_idx [n_rb * mt] int32
-// tile id of that slot; x [n_cb * B]; y [n_rb * B].
+// Operands.  The slot tables are the JAX package's: tile_cols [n_rb, mt]
+// int32, the column-block of slot j of row-block i (-1 = empty slot,
+// anywhere in the row, not only trailing); tile_idx [n_rb * mt] int32, the
+// tile id of that slot.  The dense B x B tiles are NOT read: each tile's
+// nonzeros come from the packed index beside the pool (ops.PackedIndex,
+// keyed by tile id): nz_off/nz_cnt [cap] int32, where tile t's entries start
+// and how many there are; per entry nz_row/nz_col uint8, its place in the
+// tile, and nz_val, its value in the tile dtype, row-major within a tile.
+// x [n_cb * B]; y [n_rb * B].
 //
-//   sum: y[i*B + r] = sum_j tiles[tile_idx[i, j]][r, :] . x[tile_cols[i, j]*B :]
-//   or : y[i*B + r] = 1 if any slot's partial product is > 0, else 0 (the
-//        saturating max(acc, min(part, 1)) of the TPU kernel, normalised to
-//        a 0/1 indicator whatever the tile values)
+//   sum: y[i*B + r] = sum_j part_j,  part_j = sum over row r's entries e of
+//        tile j: val[e] * x[tile_cols[i, j]*B + col[e]]
+//   or : y[i*B + r] = 1 if max_j min(part_j, 1) > 0 else 0 (the saturating
+//        fold of the TPU kernel, normalised to a 0/1 indicator whatever the
+//        tile values)
 //
-// Accumulation: f32 for f32 and bf16 tiles, f64 for f64 (_acc_dtype).
+// Accumulation: f32 for f32 and bf16 values, f64 for f64 (_acc_dtype).
+// f32 stays IEEE (CUDA-core FMA, no tensor cores).  No atomics, and every
+// sum is taken in an order fixed by the data, so two launches on the same
+// inputs are bit-identical.
 //
-// What bounds it on the card: HBM bandwidth.  Every live tile of a computed
-// row-block is read once (B*B*itemsize bytes: 32 KiB for B=64 in f64) and
-// used for 2*B*B flops, i.e. 1/4 flop per byte in f64, far below the card's
-// ~10 flop/byte (f64) ridge.  A full launch over the n = 1,048,576 road graph
-// at B = 64 reads 132,245 live tiles = 4.33 GB of f64, about 1.3 ms at
-// 3.35 TB/s; the slot tables (n_rb*mt*8 bytes), x and y add < 1 %.
+// What bounds it: device-memory bytes of the work, not of the layout.  A
+// road graph fills ~1 % of a 64 x 64 tile, so the dense tiles (32 KiB each
+// in f64; 4.4 GB per full launch at n = 1,048,576) are ~99 % zeros.  The
+// work is each nonzero's value and place once, the slot tables and the
+// per-tile offsets, x (8.4 MB at n = 1M, resident in the 50 MB L2) and y:
+// ~75 MB per full launch at n = 1M, 2 flops per nonzero, far below the f64
+// ridge.  At ~39 nonzeros per tile the reads are short gathers, so the
+// latency of the chain slot metadata -> entries -> x bounds a warp, and the
+// number of chains in flight bounds the card.
 //
-// Design (right and simple first): one thread block per row-block of the
-// list.  The block walks ALL mt slots of its row and skips empty ones, stages
-// the B-slice of x for a live slot in shared memory, and lets warps take rows
-// while lanes stride along the row, so each warp reads B contiguous tile
-// elements per step (coalesced).  A warp-shuffle reduction gives the row's
-// partial, which the owning warp folds into a per-row accumulator in shared
-// memory; y is written once at the end.  The active kernel reads its
-// row-block from active_ids[blockIdx.x] and returns at once on -1, so one
-// launch over the full -1-padded list does work proportional to the
-// frontier, and rows of blocks outside the list are never written.
+// Design.  One warp per row-block, 8 warps a CTA, 32 registers so 64 warps
+// fit an SM.  Lane j loads slot j's column-block, tile id, entry offset and
+// count (32 slots at a time); a ballot lists the slots with entries, which
+// the warp walks in slot order.  For each slot the lanes take 32 consecutive
+// entries at a time (coalesced), multiply by x[col] (read-only path, never
+// staged), and a segmented scan over the row keys (rows ascend within a
+// tile; only as deep as the batch's longest run of one row) gives each row
+// its partial; the lane ending a row's run folds it into the row's
+// accumulator in shared memory (sum: +=, or: max(acc, min(part, 1))).  A
+// row whose entries run past the batch is carried into the next batch, so
+// every fold sees the slot's whole partial.  The next batch's entries are
+// loaded before the current batch's x gather, so two levels of the chain
+// are in flight per warp.  Both kernels are persistent: a grid of the
+// occupancy limit walks the row-block list warp by warp.  The active kernel
+// skips -1 entries wherever they sit, stops at *n_active when the caller
+// passes that device count (never read on the host), and writes only the
+// rows of the blocks it computes.
 //
-// Left on the table (later work): no overlap of the next tile's loads with
-// the current reduction (cp.async / TMA double buffering), lanes idle for
-// B < 32, a __syncthreads pair per slot, and no reuse of x slices shared by
-// tiles of neighbouring row-blocks.
+// Known difference from the dense product: with a non-finite x, the dense
+// tile gives 0 * inf = NaN in a row whose tile holds a zero in that column;
+// the packed product skips zeros and does not.  The PageRank path never
+// feeds a non-finite x.
+//
+// Left on the table (later work): a batch holds one slot's entries, so at
+// ~39 entries per tile the second batch of a slot uses 7 of 32 lanes
+// (batches spanning slots need an ordered fold across slots); one warp per
+// row-block leaves a 1 % frontier (163 row-blocks) on a few SMs; no
+// cp.async.bulk staging of a row-block's entry ranges into shared memory
+// (the ranges are not 16-byte aligned today); x is reused between
+// row-blocks only through L2.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,6 +74,11 @@
 namespace {
 
 constexpr int kMaxBlock = 256;
+constexpr int kThreads = 256;          // 8 warps, one row-block each at a time
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kNoRow = 1 << 16;        // row key of a lane past the slot's entries
 
 template <typename T> struct AccOf { using type = float; };
 template <> struct AccOf<double> { using type = double; };
@@ -64,116 +96,190 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-template <typename A> __device__ __forceinline__ A warp_sum(A v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+struct Operands {
+  int B, mt, n_list;
+  const int32_t* active_ids;      // ACTIVE only
+  const long long* n_active;      // ACTIVE only; may be null
+  const int32_t* tile_idx;
+  const int32_t* tile_cols;
+  const int32_t* nz_off;
+  const int32_t* nz_cnt;
+  const uint8_t* nz_row;
+  const uint8_t* nz_col;
+  const void* nz_val;
+  const void* x;
+  void* y;
+};
 
-// One row-block: y[rb*B : rb*B + B] = (A @ x) over the row's slot list.
-template <typename T, bool OR>
-__device__ void row_block(int rb, int B, int mt, const int32_t* __restrict__ tile_idx,
-                          const int32_t* __restrict__ tile_cols,
-                          const T* __restrict__ tiles, const T* __restrict__ x,
-                          T* __restrict__ y) {
+template <typename T, bool OR, bool ACTIVE>
+__global__ void __launch_bounds__(kThreads, 8)   // 8 CTAs an SM: 32 registers
+packed_spmv_kernel(const Operands op) {
   using A = typename AccOf<T>::type;
-  __shared__ A xs[kMaxBlock];
-  __shared__ A acc[kMaxBlock];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = tid; r < B; r += blockDim.x) acc[r] = A(0);
+  __shared__ A s_acc[kWarps][kMaxBlock];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  A* acc = s_acc[warp];
 
-  const int64_t row = static_cast<int64_t>(rb) * mt;
-  for (int j = 0; j < mt; ++j) {
-    const int c = tile_cols[row + j];   // same value for every thread
-    if (c < 0) continue;                // empty slot: contributes nothing
-    const int64_t t = tile_idx[row + j];
-    __syncthreads();                    // previous slot's xs reads are done
-    for (int k = tid; k < B; k += blockDim.x)
-      xs[k] = to_acc(x[static_cast<int64_t>(c) * B + k]);
-    __syncthreads();
-    const T* tile = tiles + t * B * B;
-    for (int r = warp; r < B; r += nwarps) {
-      A p = A(0);
-      for (int k = lane; k < B; k += 32)
-        p += to_acc(tile[static_cast<int64_t>(r) * B + k]) * xs[k];
-      p = warp_sum(p);
-      if (lane == 0) {
+  const int B = op.B, mt = op.mt;
+  const int32_t* __restrict__ tile_idx = op.tile_idx;
+  const int32_t* __restrict__ tile_cols = op.tile_cols;
+  const int32_t* __restrict__ nz_off = op.nz_off;
+  const int32_t* __restrict__ nz_cnt = op.nz_cnt;
+  const uint8_t* __restrict__ nz_row = op.nz_row;
+  const uint8_t* __restrict__ nz_col = op.nz_col;
+  const T* __restrict__ nz_val = static_cast<const T*>(op.nz_val);
+  const T* __restrict__ x = static_cast<const T*>(op.x);
+  T* __restrict__ y = static_cast<T*>(op.y);
+
+  long long limit = op.n_list;
+  if (ACTIVE && op.n_active != nullptr) {
+    const long long na = *op.n_active;
+    if (na < limit) limit = na > 0 ? na : 0;
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long k = static_cast<long long>(blockIdx.x) * kWarps + warp;
+       k < limit; k += stride) {
+    const int rb = ACTIVE ? op.active_ids[k] : static_cast<int>(k);
+    if (rb < 0) continue;                       // warp-uniform
+    for (int r = lane; r < B; r += 32) acc[r] = A(0);
+    __syncwarp();
+    const long long slot0 = static_cast<long long>(rb) * mt;
+
+    // slot cursor: lane j holds slot j0 + j of the current 32-slot chunk;
+    // `live` marks the chunk's slots with entries still to walk, in order
+    int j0 = 0, c = -1, off = 0, cnt = 0;
+    unsigned live = 0;
+    auto stage = [&]() {
+      const int j = j0 + lane;
+      c = -1; off = 0; cnt = 0;
+      if (j < mt) {
+        c = tile_cols[slot0 + j];
+        const int t = tile_idx[slot0 + j];
+        if (c >= 0) { off = nz_off[t]; cnt = nz_cnt[t]; }
+      }
+      live = __ballot_sync(kAll, cnt > 0);
+    };
+    int cs = 0, os = 0, ns = 0;                 // the slot being walked
+    auto next_slot = [&]() -> bool {
+      while (live == 0) {
+        j0 += 32;
+        if (j0 >= mt) return false;
+        stage();
+      }
+      const int sl = __ffs(live) - 1;
+      live &= live - 1;
+      cs = __shfl_sync(kAll, c, sl);
+      os = __shfl_sync(kAll, off, sl);
+      ns = __shfl_sync(kAll, cnt, sl);
+      return true;
+    };
+    // one batch: entries e0 + lane of the slot, and for lane 31 the row of
+    // the entry after the batch (does its row run on?)
+    int row_n = kNoRow, col_n = 0, after_n = kNoRow;
+    A val_n = A(0);
+    auto fetch = [&](int e0) {
+      const int e = e0 + lane;
+      row_n = kNoRow; col_n = 0; val_n = A(0); after_n = kNoRow;
+      if (e < ns) {
+        row_n = nz_row[os + e];
+        col_n = nz_col[os + e];
+        val_n = to_acc(nz_val[os + e]);
+        if (lane == 31 && e + 1 < ns) after_n = nz_row[os + e + 1];
+      }
+    };
+
+    stage();
+    bool have = next_slot();
+    int e0 = 0;
+    if (have) fetch(0);
+    A carry = A(0);
+    int carry_row = -1;
+    while (have) {
+      const int row = row_n, col = col_n, after = after_n;
+      const A val = val_n;
+      const T* xs = x + static_cast<long long>(cs) * B;
+      // advance and issue the next batch's loads before using this one
+      e0 += 32;
+      if (e0 >= ns) { have = next_slot(); e0 = 0; }
+      if (have) fetch(e0);
+
+      const bool valid = row != kNoRow;
+      A v = valid ? val * to_acc(xs[col]) : A(0);
+      if (lane == 0 && row == carry_row) v = carry + v;
+      // segmented inclusive scan keyed by row (rows ascend within a tile),
+      // as deep as the batch's longest run of one row needs: a tree order
+      // fixed by the data, so the same inputs give the same bits
+      const int prev = __shfl_up_sync(kAll, row, 1);
+      unsigned run = __ballot_sync(kAll, lane > 0 && valid && prev == row);
+      int longest = 0;
+      while (run) { run &= run << 1; ++longest; }
+      for (int d = 1; d <= longest; d <<= 1) {
+        const A up = __shfl_up_sync(kAll, v, d);
+        const int urow = __shfl_up_sync(kAll, row, d);
+        if (lane >= d && urow == row) v = up + v;
+      }
+      int nxt = __shfl_down_sync(kAll, row, 1);
+      if (lane == 31) nxt = after;
+      // a row whose entries run on into the next batch is carried there
+      carry_row = __shfl_sync(kAll, valid && after == row ? row : -1, 31);
+      carry = __shfl_sync(kAll, v, 31);
+      if (valid && nxt != row) {                // this slot's partial of `row`
         if (OR) {
-          const A sat = p < A(1) ? p : A(1);
-          acc[r] = acc[r] > sat ? acc[r] : sat;
+          const A sat = v < A(1) ? v : A(1);
+          acc[row] = acc[row] > sat ? acc[row] : sat;
         } else {
-          acc[r] += p;
+          acc[row] += v;
         }
       }
+      __syncwarp();
     }
-  }
-  __syncthreads();
-  T* out = y + static_cast<int64_t>(rb) * B;
-  for (int r = tid; r < B; r += blockDim.x) {
-    const A a = acc[r];
-    out[r] = OR ? from_acc<T>(a > A(0) ? A(1) : A(0)) : from_acc<T>(a);
+    T* out = y + static_cast<long long>(rb) * B;
+    for (int r = lane; r < B; r += 32) {
+      const A a = acc[r];
+      out[r] = OR ? from_acc<T>(a > A(0) ? A(1) : A(0)) : from_acc<T>(a);
+    }
+    __syncwarp();
   }
 }
 
-template <typename T, bool OR>
-__global__ void block_spmv_kernel(int B, int mt, const int32_t* __restrict__ tile_idx,
-                                  const int32_t* __restrict__ tile_cols,
-                                  const T* __restrict__ tiles,
-                                  const T* __restrict__ x, T* __restrict__ y) {
-  row_block<T, OR>(blockIdx.x, B, mt, tile_idx, tile_cols, tiles, x, y);
+int sm_count() {
+  static int count[kMaxDevices] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return 132;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 132;
 }
 
-template <typename T, bool OR>
-__global__ void block_spmv_active_kernel(int B, int mt,
-                                         const int32_t* __restrict__ active_ids,
-                                         const int32_t* __restrict__ tile_idx,
-                                         const int32_t* __restrict__ tile_cols,
-                                         const T* __restrict__ tiles,
-                                         const T* __restrict__ x, T* __restrict__ y) {
-  const int rb = active_ids[blockIdx.x];
-  if (rb < 0) return;                   // padded slot: no work, no write
-  row_block<T, OR>(rb, B, mt, tile_idx, tile_cols, tiles, x, y);
-}
-
-int threads_for(int B) { return B >= 64 ? 256 : 128; }
-
-template <typename T>
-int launch(int semiring, int B, int mt, int n_list, const int32_t* active_ids,
-           const int32_t* tile_idx, const int32_t* tile_cols, const void* tiles,
-           const void* x, void* y, cudaStream_t stream) {
-  const dim3 grid(n_list), block(threads_for(B));
-  const T* tp = static_cast<const T*>(tiles);
-  const T* xp = static_cast<const T*>(x);
-  T* yp = static_cast<T*>(y);
-  if (active_ids == nullptr) {
-    if (semiring == 0)
-      block_spmv_kernel<T, false><<<grid, block, 0, stream>>>(B, mt, tile_idx, tile_cols, tp, xp, yp);
-    else
-      block_spmv_kernel<T, true><<<grid, block, 0, stream>>>(B, mt, tile_idx, tile_cols, tp, xp, yp);
-  } else {
-    if (semiring == 0)
-      block_spmv_active_kernel<T, false><<<grid, block, 0, stream>>>(B, mt, active_ids, tile_idx, tile_cols, tp, xp, yp);
-    else
-      block_spmv_active_kernel<T, true><<<grid, block, 0, stream>>>(B, mt, active_ids, tile_idx, tile_cols, tp, xp, yp);
+template <typename T, bool OR, bool ACTIVE>
+int launch(const Operands& op, cudaStream_t stream) {
+  static int ctas_per_sm = 0;                   // occupancy limit
+  if (ctas_per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas_per_sm, packed_spmv_kernel<T, OR, ACTIVE>, kThreads, 0);
+    if (ctas_per_sm < 1) ctas_per_sm = 1;
   }
+  const long long want = (static_cast<long long>(op.n_list) + kWarps - 1) / kWarps;
+  const long long cap = static_cast<long long>(ctas_per_sm) * sm_count();
+  const dim3 grid(static_cast<unsigned>(want < cap ? want : cap)), block(kThreads);
+  packed_spmv_kernel<T, OR, ACTIVE><<<grid, block, 0, stream>>>(op);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int dtype, int semiring, int B, int mt, int n_list,
-             const int32_t* active_ids, const int32_t* tile_idx,
-             const int32_t* tile_cols, const void* tiles, const void* x, void* y,
-             void* stream) {
-  if (B < 1 || B > kMaxBlock || mt < 1 || n_list < 0 || semiring < 0 || semiring > 1)
+template <bool ACTIVE>
+int dispatch(int dtype, int semiring, const Operands& op, void* stream) {
+  if (op.B < 1 || op.B > kMaxBlock || op.mt < 1 || op.n_list < 0 ||
+      semiring < 0 || semiring > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_list == 0) return 0;
+  if (op.n_list == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool OR = semiring == 1;
   switch (dtype) {
-    case 0: return launch<float>(semiring, B, mt, n_list, active_ids, tile_idx, tile_cols, tiles, x, y, s);
-    case 1: return launch<double>(semiring, B, mt, n_list, active_ids, tile_idx, tile_cols, tiles, x, y, s);
-    case 2: return launch<__nv_bfloat16>(semiring, B, mt, n_list, active_ids, tile_idx, tile_cols, tiles, x, y, s);
+    case 0: return OR ? launch<float, true, ACTIVE>(op, s) : launch<float, false, ACTIVE>(op, s);
+    case 1: return OR ? launch<double, true, ACTIVE>(op, s) : launch<double, false, ACTIVE>(op, s);
+    case 2: return OR ? launch<__nv_bfloat16, true, ACTIVE>(op, s)
+                      : launch<__nv_bfloat16, false, ACTIVE>(op, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -184,17 +290,27 @@ int dispatch(int dtype, int semiring, int B, int mt, int n_list,
 // Each entry returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int block_spmv_launch(int dtype, int semiring, int B, int mt, int n_rb,
                                  const int32_t* tile_idx, const int32_t* tile_cols,
-                                 const void* tiles, const void* x, void* y,
+                                 const int32_t* nz_off, const int32_t* nz_cnt,
+                                 const uint8_t* nz_row, const uint8_t* nz_col,
+                                 const void* nz_val, const void* x, void* y,
                                  void* stream) {
-  return dispatch(dtype, semiring, B, mt, n_rb, nullptr, tile_idx, tile_cols, tiles, x, y, stream);
+  const Operands op{B, mt, n_rb, nullptr, nullptr, tile_idx, tile_cols,
+                    nz_off, nz_cnt, nz_row, nz_col, nz_val, x, y};
+  return dispatch<false>(dtype, semiring, op, stream);
 }
 
 extern "C" int block_spmv_active_launch(int dtype, int semiring, int B, int mt, int n_ids,
                                         const int32_t* active_ids,
+                                        const long long* n_active,
                                         const int32_t* tile_idx,
-                                        const int32_t* tile_cols, const void* tiles,
+                                        const int32_t* tile_cols,
+                                        const int32_t* nz_off, const int32_t* nz_cnt,
+                                        const uint8_t* nz_row,
+                                        const uint8_t* nz_col, const void* nz_val,
                                         const void* x, void* y, void* stream) {
-  return dispatch(dtype, semiring, B, mt, n_ids, active_ids, tile_idx, tile_cols, tiles, x, y, stream);
+  const Operands op{B, mt, n_ids, active_ids, n_active, tile_idx, tile_cols,
+                    nz_off, nz_cnt, nz_row, nz_col, nz_val, x, y};
+  return dispatch<true>(dtype, semiring, op, stream);
 }
 
 extern "C" const char* block_spmv_error_string(int code) {

@@ -11,15 +11,20 @@ Differences from the JAX module, each because the device differs:
 * ``BlockSparse`` is a dataclass of torch tensors that also carries the host
   numpy twins of its slot tables, so ``plan_delta`` never copies them back
   from the device.
-* ``apply_delta`` patches the tile pool **in place** (one ``index_add_``) —
-  the JAX version returns a new pool.  A caller that still needs the
-  pre-delta tile values computes with them before calling it.  Tile values
-  are sums of ±1, so the unordered CUDA scatter is exact.
-* ``block_spmv_active_bucketed`` keeps its signature but makes ONE launch
-  over the full ``[n_rb]`` id list: program *k* returns at once on −1, so the
-  work is already proportional to the frontier, and ``n_active`` stays a
-  device scalar that is never read back to choose a launch.  The static
-  ``lax.switch`` ladder of the TPU has no purpose here.
+* ``BlockSparse`` also carries a :class:`PackedIndex` of each tile's
+  nonzeros, the operand of the CUDA kernels (which never read the dense
+  tiles).  It is built from the tiles once (:func:`build_index`) and kept in
+  step by ``apply_delta``, which re-packs only the tiles a batch lands in
+  (:func:`refresh_index`).
+* ``apply_delta`` patches the tile pool and the index **in place** (one
+  ``index_add_``, then the re-pack) — the JAX version returns a new pool.
+  A caller that still needs the pre-delta tiles or index computes with them
+  before calling it.  Tile values are sums of ±1, so the unordered CUDA
+  scatter is exact.
+* ``block_spmv_active_bucketed`` keeps its signature but makes ONE
+  persistent launch over the full ``[n_rb]`` id list that stops at the
+  device count ``n_active``, which is never read back to size a launch.
+  The static ``lax.switch`` ladder of the TPU has no purpose here.
 * There is no ``backend=`` knob: the tensors' device picks the kernel (CUDA)
   or its plain version (CPU).
 """
@@ -37,6 +42,7 @@ from repro_torch.kernels.block_spmv import block_spmv as bsk
 TILE_CAP_BASE = 8        # minimum tile-pool capacity bucket
 SLOT_CAP_BASE = 4        # minimum per-row slot-table width bucket
 ACTIVE_LADDER_BASE = 8   # smallest active-block grid bucket
+INDEX_CHUNK_ELEMS = 1 << 23   # dense tile elements packed per step
 
 I32_MAX = np.iinfo(np.int32).max
 
@@ -75,6 +81,149 @@ def active_ladder(n_rb: int, base: int = ACTIVE_LADDER_BASE
     return tuple(out)
 
 
+def _upload(a, dev: torch.device) -> torch.Tensor:
+    """A host array or CPU tensor on ``dev`` without a host sync: on the
+    card through a pinned staging copy and an asynchronous transfer on the
+    current stream; on the CPU the tensor itself (sharing ``a``'s memory)."""
+    t = a if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+@dataclasses.dataclass
+class PackedIndex:
+    """The nonzeros of every tile of a pool, packed — the operand of the CUDA
+    tile-SpMV kernels, which never read the dense tiles.
+
+    Keyed by tile id, so slot-table rebuilds never invalidate it.  Tile t's
+    nonzeros are entries ``off[t] : off[t] + cnt[t]`` of ``row``/``col``
+    (their place within the tile) and ``val``, in row-major order (rows
+    ascending, columns ascending within a row).  Entries past ``tail`` are
+    free; space a re-pack abandoned is reclaimed when the tail runs out
+    (:func:`refresh_index` then rebuilds).  ``bound_h`` is a host upper
+    bound of each ``cnt`` that sizes a re-pack's space without reading the
+    device."""
+    off: torch.Tensor          # [tile_capacity] int32
+    cnt: torch.Tensor          # [tile_capacity] int32
+    row: torch.Tensor          # [entry_capacity] uint8
+    col: torch.Tensor          # [entry_capacity] uint8
+    val: torch.Tensor          # [entry_capacity] tile dtype
+    tail: int                  # first free entry
+    bound_h: np.ndarray        # [tile_capacity] int64, ≥ cnt
+
+    @property
+    def entry_capacity(self) -> int:
+        return int(self.val.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in (self.off, self.cnt, self.row, self.col,
+                                      self.val))
+
+
+def _pack_tiles(index: PackedIndex, T: torch.Tensor, ids: torch.Tensor,
+                res: np.ndarray, start: int) -> None:
+    """Pack the dense tiles ``T [k, B, B]`` (tile ids ``ids`` [k] on T's
+    device) into ``index``: tile i gets ``res[i]`` entries (host ints, each
+    ≥ its nonzero count) from ``start`` on, in order, and the entry range
+    ``[start, start + sum(res))`` is written whole (slack as zeros).  The
+    q-th nonzero of a tile is found by a binary search of the running count
+    of nonzeros, so no output size is read back: device work only."""
+    k, B, _ = T.shape
+    dev = T.device
+    nz = T != 0
+    cnt = nz.sum((1, 2), dtype=torch.int32)
+    first = np.zeros(k, np.int64)
+    np.cumsum(res[:-1], out=first[1:])
+    off = _upload(start + first, dev)
+    index.off[ids] = off.to(torch.int32)
+    index.cnt[ids] = cnt
+    total = int(res.sum())
+    if total == 0:
+        return
+    owner = torch.repeat_interleave(torch.arange(k, device=dev),
+                                    _upload(res, dev), output_size=total)
+    q = torch.arange(total, device=dev) - (off - start)[owner]
+    run = nz.reshape(-1).cumsum(0)                  # nonzeros up to here
+    before = (cnt.cumsum(0) - cnt).long()           # nonzeros of tiles < i
+    live = q < cnt[owner]
+    p = torch.where(live, torch.searchsorted(run, before[owner] + q + 1), 0)
+    span = slice(start, start + total)
+    index.row[span] = torch.where(live, p // B % B, 0).to(torch.uint8)
+    index.col[span] = torch.where(live, p % B, 0).to(torch.uint8)
+    index.val[span] = torch.where(live, T.reshape(-1)[p], 0)
+
+
+def build_index(tiles: torch.Tensor) -> PackedIndex:
+    """The packed index of a whole tile pool, on the pool's device, packed
+    in steps of :data:`INDEX_CHUNK_ELEMS` dense elements.  One host sync:
+    the per-tile counts, which size the entry pool (the live entries plus
+    a quarter, at least one tile's worth, on :func:`capacity_bucket`)."""
+    cap, B, _ = tiles.shape
+    dev = tiles.device
+    step = max(1, INDEX_CHUNK_ELEMS // (B * B))
+    cnt = torch.empty(cap, dtype=torch.int64, device=dev)
+    for a in range(0, cap, step):
+        cnt[a:a + step] = (tiles[a:a + step] != 0).sum((1, 2))
+    cnt_h = cnt.cpu().numpy()
+    nnz = int(cnt_h.sum())
+    e_cap = capacity_bucket(nnz + max(nnz // 4, B * B))
+    check_i32(e_cap, "packed entry")
+    index = PackedIndex(
+        off=torch.zeros(cap, dtype=torch.int32, device=dev),
+        cnt=torch.zeros(cap, dtype=torch.int32, device=dev),
+        row=torch.zeros(e_cap, dtype=torch.uint8, device=dev),
+        col=torch.zeros(e_cap, dtype=torch.uint8, device=dev),
+        val=torch.zeros(e_cap, dtype=tiles.dtype, device=dev),
+        tail=nnz, bound_h=cnt_h.astype(np.int64))
+    start = 0
+    for a in range(0, cap, step):
+        res = index.bound_h[a:a + step]
+        _pack_tiles(index, tiles[a:a + step],
+                    torch.arange(a, a + len(res), device=dev), res, start)
+        start += int(res.sum())
+    return index
+
+
+def refresh_index(index: PackedIndex, tiles: torch.Tensor, tid: np.ndarray,
+                  rloc: np.ndarray, cloc: np.ndarray) -> PackedIndex:
+    """Re-pack the tiles a delta batch landed in (edge k in tile ``tid[k]``
+    at in-tile ``(rloc[k], cloc[k])``) from the patched pool into fresh
+    space at the index's tail, in place and without a host sync.
+
+    A position can turn nonzero only where the batch lands, so a tile's new
+    count is at most its old bound plus the batch's distinct coordinates in
+    it; that bound (host side) sizes the space.  The per-tile arrays grow
+    with the tile pool.  When the tail is out of room the index is rebuilt
+    whole (:func:`build_index`: one sync, a new entry capacity)."""
+    cap, B, _ = tiles.shape
+    dev = tiles.device
+    grow = cap - index.off.shape[0]
+    if grow > 0:
+        index = dataclasses.replace(
+            index, off=torch.cat([index.off, index.off.new_zeros(grow)]),
+            cnt=torch.cat([index.cnt, index.cnt.new_zeros(grow)]),
+            bound_h=np.concatenate([index.bound_h,
+                                    np.zeros(grow, np.int64)]))
+    tid = np.asarray(tid, np.int64)
+    key = np.unique((tid * B + np.asarray(rloc, np.int64)) * B
+                    + np.asarray(cloc, np.int64))
+    touched, fresh = np.unique(key // (B * B), return_counts=True)
+    bound = np.minimum(index.bound_h[touched] + fresh, B * B)
+    if index.tail + int(bound.sum()) > index.entry_capacity:
+        return build_index(tiles)
+    step = max(1, INDEX_CHUNK_ELEMS // (B * B))
+    for a in range(0, len(touched), step):
+        ids = _upload(touched[a:a + step], dev)
+        res = bound[a:a + step]
+        _pack_tiles(index, tiles[ids], ids, res, index.tail)
+        index.tail += int(res.sum())
+    index.bound_h[touched] = bound
+    return index
+
+
 @dataclasses.dataclass
 class BlockSparse:
     """Block-sparse matrix A [n_rows_pad, n_cols_pad] in B×B dense tiles.
@@ -85,7 +234,8 @@ class BlockSparse:
     ``tiles.shape[0]`` is a capacity: trailing tiles no slot references are
     zero padding from the growth ladder.  ``tile_cols_h`` / ``tile_idx_h``
     are host numpy copies of the two slot tables, kept in step with the
-    device ones by :func:`apply_delta`.
+    device ones by :func:`apply_delta`.  ``index`` packs the tiles'
+    nonzeros for the CUDA kernels; one not given is built from ``tiles``.
     """
     n_rows: int
     n_cols: int
@@ -96,6 +246,11 @@ class BlockSparse:
     tile_idx: torch.Tensor       # [n_rb * max_tiles] int32
     tile_cols_h: np.ndarray      # host twin of tile_cols
     tile_idx_h: np.ndarray       # host twin of tile_idx
+    index: Optional[PackedIndex] = None
+
+    def __post_init__(self):
+        if self.index is None:
+            self.index = build_index(self.tiles)
 
     @property
     def n_rb(self) -> int:
@@ -142,15 +297,18 @@ def _slot_tables(tiles_rb: np.ndarray, tiles_cb: np.ndarray, n_rb: int,
 
 def _from_tables(n_rows: int, n_cols: int, block: int, max_tiles: int,
                  tiles: torch.Tensor, tile_cols: np.ndarray,
-                 tile_idx: np.ndarray) -> BlockSparse:
+                 tile_idx: np.ndarray,
+                 index: Optional[PackedIndex] = None) -> BlockSparse:
+    """A ``BlockSparse`` over ``tiles`` with these slot tables; ``index``
+    carries an existing packed index over, else it is built."""
     dev = tiles.device
     tile_idx = np.array(tile_idx, dtype=np.int32).reshape(-1)
     tile_cols = np.array(tile_cols, dtype=np.int32)
     return BlockSparse(
         n_rows=n_rows, n_cols=n_cols, block=block, max_tiles=max_tiles,
-        tiles=tiles, tile_cols=torch.from_numpy(tile_cols).to(dev),
-        tile_idx=torch.from_numpy(tile_idx).to(dev),
-        tile_cols_h=tile_cols, tile_idx_h=tile_idx)
+        tiles=tiles, tile_cols=_upload(tile_cols, dev),
+        tile_idx=_upload(tile_idx, dev),
+        tile_cols_h=tile_cols, tile_idx_h=tile_idx, index=index)
 
 
 def build_block_sparse(rows: np.ndarray, cols: np.ndarray, n_rows: int,
@@ -283,8 +441,7 @@ def _scatter_delta(tiles: torch.Tensor, tid: np.ndarray, rloc: np.ndarray,
     dev = tiles.device
     flat = (tid.astype(np.int64) * (block * block)
             + rloc.astype(np.int64) * block + cloc.astype(np.int64))
-    tiles.view(-1).index_add_(0, torch.from_numpy(flat).to(dev),
-                              vals.to(dev))
+    tiles.view(-1).index_add_(0, _upload(flat, dev), _upload(vals, dev))
 
 
 def apply_delta(mat: BlockSparse, rows: np.ndarray, cols: np.ndarray,
@@ -297,7 +454,9 @@ def apply_delta(mat: BlockSparse, rows: np.ndarray, cols: np.ndarray,
     :func:`capacity_bucket` first (a new tensor).  New (row-block,
     col-block) pairs are appended into the preallocated capacity; the slot
     tables are rewidened only when a row's bucket overflows.  Tiles emptied
-    by deletions are kept (structure grows monotonically).
+    by deletions are kept (structure grows monotonically).  The packed
+    index is carried over on every path and re-packed for the touched
+    tiles only (:func:`refresh_index`, no host sync).
 
     Raises ``ValueError`` for coordinates outside the matrix grid: the block
     grid is fixed for the lifetime of a stream.
@@ -328,12 +487,14 @@ def apply_delta(mat: BlockSparse, rows: np.ndarray, cols: np.ndarray,
             (cap - tiles.shape[0], B, B))])
     # values cast to the tile dtype first, as the JAX version does
     vals = torch.from_numpy(np.asarray(values, np.float64)).to(tiles.dtype)
-    _scatter_delta(tiles, plan.tid, rows % B, cols % B, vals, block=B)
+    rloc, cloc = rows % B, cols % B
+    _scatter_delta(tiles, plan.tid, rloc, cloc, vals, block=B)
+    index = refresh_index(mat.index, tiles, plan.tid, rloc, cloc)
 
     if plan.tile_cols is None:
-        return dataclasses.replace(mat, tiles=tiles)
+        return dataclasses.replace(mat, tiles=tiles, index=index)
     return _from_tables(mat.n_rows, mat.n_cols, B, plan.max_tiles, tiles,
-                        plan.tile_cols, plan.tile_idx)
+                        plan.tile_cols, plan.tile_idx, index=index)
 
 
 # ---------------------------------------------------------------------------
@@ -352,23 +513,28 @@ def _pad_x(mat: BlockSparse, x: torch.Tensor) -> torch.Tensor:
 def block_spmv(mat: BlockSparse, x: torch.Tensor, *,
                semiring: str = "sum") -> torch.Tensor:
     """y = A @ x over the requested semiring; x is zero-padded to block
-    size.  Kernel #1 on the card, its plain version on the CPU."""
+    size.  Kernel #1 on the card (over the packed index), its plain version
+    on the CPU (over the tiles)."""
     y = bsk.tile_spmv(mat.tile_idx, mat.tile_cols, mat.tiles,
                       _pad_x(mat, x), block=mat.block,
-                      max_tiles=mat.max_tiles, semiring=semiring)
+                      max_tiles=mat.max_tiles, semiring=semiring,
+                      index=mat.index)
     return y[:mat.n_rows]
 
 
 def block_spmv_active(mat: BlockSparse, x: torch.Tensor,
-                      active_ids: torch.Tensor, *,
-                      semiring: str = "sum") -> torch.Tensor:
+                      active_ids: torch.Tensor, *, semiring: str = "sum",
+                      n_active: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Frontier-compacted y = A @ x restricted to the row-blocks in
-    ``active_ids`` (−1 entries skipped).  Rows of inactive blocks are
+    ``active_ids`` (−1 entries skipped; on the card, entries from the device
+    count ``n_active`` on are not computed).  Rows of inactive blocks are
     UNDEFINED — mask with the active-block indicator before consuming."""
     y = bsk.tile_spmv_active(active_ids.to(torch.int32).contiguous(),
                              mat.tile_idx, mat.tile_cols, mat.tiles,
                              _pad_x(mat, x), block=mat.block,
-                             max_tiles=mat.max_tiles, semiring=semiring)
+                             max_tiles=mat.max_tiles, semiring=semiring,
+                             index=mat.index, n_active=n_active)
     return y[:mat.n_rows]
 
 
@@ -378,11 +544,10 @@ def block_spmv_active_bucketed(mat: BlockSparse, x: torch.Tensor,
                                semiring: str = "sum") -> torch.Tensor:
     """Frontier-proportional active SpMV: ``active_ids`` is the full
     compacted slot list ([n_rb], −1-padded) and ``n_active`` its (device)
-    count of real entries.  One launch over the whole list — each −1 slot
-    returns at once — so ``n_active`` is not needed to size the launch and
-    is never read back."""
-    del n_active
-    return block_spmv_active(mat, x, active_ids, semiring=semiring)
+    count of real entries.  One launch over the whole list whose walk stops
+    at ``n_active`` on the device, so the count is never read back."""
+    return block_spmv_active(mat, x, active_ids, semiring=semiring,
+                             n_active=n_active)
 
 
 def block_adjacency(mat: BlockSparse) -> torch.Tensor:

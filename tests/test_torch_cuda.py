@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, and
-a stream on the card against the same stream on the CPU.
+"""The hand-written CUDA kernels (reading the packed nonzero index) against
+their plain PyTorch versions (reading the dense tiles), the index refresh on
+the card, and a stream on the card against the same stream on the CPU.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -48,7 +49,8 @@ def test_cuda_kernels_match_plain(cuda_device, block, t_dt, semiring):
     x = tops._pad_x(mat, xh.to(t_dt).to(cuda_device))
     kw = dict(block=block, max_tiles=mat.max_tiles, semiring=semiring)
     args = (mat.tile_idx, mat.tile_cols, mat.tiles, x)
-    torch.testing.assert_close(bsk.block_spmv_cuda(*args, **kw),
+    kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
+    torch.testing.assert_close(bsk.block_spmv_cuda(*kargs, **kw),
                                bsk.block_spmv_plain(*args, **kw),
                                rtol=tol, atol=tol)
     act = torch.arange(0, mat.n_rb, 2, dtype=torch.int32)
@@ -57,13 +59,144 @@ def test_cuda_kernels_match_plain(cuda_device, block, t_dt, semiring):
     ids = ids.to(cuda_device)
     out = torch.full((mat.n_rb * block,), float("nan"), dtype=t_dt,
                      device=cuda_device)
-    ya = bsk.block_spmv_active_cuda(ids, *args, out=out, **kw)
+    ya = bsk.block_spmv_active_cuda(ids, *kargs, out=out, **kw)
     yp = bsk.block_spmv_active_plain(ids, *args, **kw)
     live = torch.zeros(mat.n_rb, dtype=torch.bool)
     live[act.long()] = True
     live = live.repeat_interleave(block).to(cuda_device)
     torch.testing.assert_close(ya[live], yp[live], rtol=tol, atol=tol)
     assert bool(torch.isnan(ya[~live]).all())
+
+
+def _nan_out(mat, dtype, device):
+    return torch.full((mat.n_rb * mat.block,), float("nan"), dtype=dtype,
+                      device=device)
+
+
+def _rows_of(ids, n_rb, block, device):
+    live = np.zeros(n_rb, bool)
+    live[ids[ids >= 0]] = True
+    return torch.from_numpy(np.repeat(live, block)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_dt", [torch.float64, torch.float32])
+def test_cuda_kernels_after_a_compacting_delta_stream(cuda_device, t_dt):
+    """After every batch of a stream whose index refreshes in place and
+    compacts at least once, both kernels equal their plain versions."""
+    n, B = 900, 32
+    rng = np.random.default_rng(17)
+    tol = TOLS[t_dt]
+    mat = tops.build_block_sparse(rng.integers(0, n, 5000),
+                                  rng.integers(0, n, 5000), n, n, block=B,
+                                  dtype=t_dt, padded=True, device=cuda_device)
+    compacted = refreshed = 0
+    for size in (15, 15, 2500, 15, 2500):
+        tail0, e_cap0 = mat.index.tail, mat.index.entry_capacity
+        mat = tops.apply_delta(mat, rng.integers(0, n, size),
+                               rng.integers(0, n, size),
+                               np.where(rng.random(size) < 0.3, -1.0, 1.0))
+        if mat.index.tail < tail0 or mat.index.entry_capacity != e_cap0:
+            compacted += 1
+        else:
+            refreshed += 1
+        x = tops._pad_x(mat, torch.from_numpy(rng.random(n)).to(t_dt)
+                        .to(cuda_device))
+        kw = dict(block=B, max_tiles=mat.max_tiles, semiring="sum")
+        args = (mat.tile_idx, mat.tile_cols, mat.tiles, x)
+        kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
+        torch.testing.assert_close(bsk.block_spmv_cuda(*kargs, **kw),
+                                   bsk.block_spmv_plain(*args, **kw),
+                                   rtol=tol, atol=tol)
+        ids_h = np.arange(mat.n_rb, dtype=np.int32)
+        ids = torch.from_numpy(ids_h).to(cuda_device)
+        torch.testing.assert_close(
+            bsk.block_spmv_active_cuda(ids, *kargs, **kw),
+            bsk.block_spmv_active_plain(ids, *args, **kw),
+            rtol=tol, atol=tol)
+    assert compacted >= 1 and refreshed >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semiring", ["sum", "or"])
+def test_cuda_launches_are_bit_identical(cuda_device, semiring):
+    """Fixed summation order, no atomics: two launches on the same inputs
+    give the same bits."""
+    n, B = 2000, 64
+    rng = np.random.default_rng(23)
+    mat = tops.build_block_sparse(rng.integers(0, n, 30000),
+                                  rng.integers(0, n, 30000), n, n, block=B,
+                                  dtype=torch.float32, padded=True,
+                                  device=cuda_device)
+    x = tops._pad_x(mat, torch.from_numpy(rng.random(n)).float()
+                    .to(cuda_device))
+    kw = dict(block=B, max_tiles=mat.max_tiles, semiring=semiring)
+    kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
+    assert torch.equal(bsk.block_spmv_cuda(*kargs, **kw),
+                       bsk.block_spmv_cuda(*kargs, **kw))
+    ids = torch.arange(mat.n_rb, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(bsk.block_spmv_active_cuda(ids, *kargs, **kw),
+                       bsk.block_spmv_active_cuda(ids, *kargs, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [None, 4])
+def test_cuda_active_list_holes_and_device_count(cuda_device, count):
+    """A −1 in the middle of the list is skipped; a device count
+    ``n_active`` ends the walk, and the rows of the list's later entries
+    stay unwritten."""
+    n, B = 800, 16
+    rng = np.random.default_rng(29)
+    mat = tops.build_block_sparse(rng.integers(0, n, 6000),
+                                  rng.integers(0, n, 6000), n, n, block=B,
+                                  dtype=torch.float64, padded=True,
+                                  device=cuda_device)
+    x = tops._pad_x(mat, torch.from_numpy(rng.random(n)).to(cuda_device))
+    kw = dict(block=B, max_tiles=mat.max_tiles, semiring="sum")
+    pick = rng.choice(mat.n_rb, 7, replace=False).astype(np.int32)
+    ids_h = np.full(mat.n_rb, -1, np.int32)
+    ids_h[:2], ids_h[3:8] = pick[:2], pick[2:]          # −1 at slot 2
+    ids = torch.from_numpy(ids_h).to(cuda_device)
+    n_act = (None if count is None else
+             torch.tensor(count, dtype=torch.int64, device=cuda_device))
+    ya = bsk.block_spmv_active_cuda(
+        ids, mat.tile_idx, mat.tile_cols, mat.index, x, n_active=n_act,
+        out=_nan_out(mat, torch.float64, cuda_device), **kw)
+    yp = bsk.block_spmv_active_plain(ids, mat.tile_idx, mat.tile_cols,
+                                     mat.tiles, x, **kw)
+    seen = ids_h if count is None else ids_h[:count]
+    rows = _rows_of(seen, mat.n_rb, B, cuda_device)
+    torch.testing.assert_close(ya[rows], yp[rows], rtol=1e-12, atol=1e-12)
+    assert bool(torch.isnan(ya[~rows]).all())
+
+
+@pytest.mark.cuda
+def test_cuda_index_refresh_makes_no_host_sync(cuda_device):
+    """``apply_delta`` on the card — the scatter and the index refresh, on a
+    batch that opens tiles and on one that does not — runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    n, B = 1000, 32
+    rng = np.random.default_rng(31)
+    mat = tops.build_block_sparse(rng.integers(0, n, 5000),
+                                  rng.integers(0, n, 5000), n, n, block=B,
+                                  dtype=torch.float64, padded=True,
+                                  device=cuda_device)
+    torch.cuda.synchronize()
+    batches = [(rng.integers(0, n, 40), rng.integers(0, n, 40), np.ones(40)),
+               (np.array([0]), np.array([0]), np.zeros(1))]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r, c, v in batches:
+            mat = tops.apply_delta(mat, r, c, v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fresh = tops.build_index(mat.tiles)
+    x = tops._pad_x(mat, torch.from_numpy(rng.random(n)).to(cuda_device))
+    kw = dict(block=B, max_tiles=mat.max_tiles, semiring="sum")
+    torch.testing.assert_close(
+        bsk.block_spmv_cuda(mat.tile_idx, mat.tile_cols, mat.index, x, **kw),
+        bsk.block_spmv_cuda(mat.tile_idx, mat.tile_cols, fresh, x, **kw),
+        rtol=0, atol=0)
 
 
 @pytest.mark.cuda
