@@ -35,9 +35,23 @@ Phases, each of which raises (non-zero exit) on any failed check:
    lasts;
 5. one more df update under ``cProfile``: where its wall time goes; and
    one under ``torch.profiler``: the card's busy time in it (the sum of its
-   kernels' device time) against its wall time, i.e. the idle share.
+   kernels' device time) against its wall time, i.e. the idle share;
+6. the push driver (``EngineConfig(driver="push")``) on the same graph and
+   traffic, after the pull session is closed: its cold solve, ``warmup()``,
+   the same 8 df batches and nd batch, ``top_k(10)`` and a ``query``, with
+   the launch counters zeroed just before and read just after; per update
+   its sweeps, pushed and candidate blocks, edges and host syncs beside the
+   pull's; the final ranks held to phase 3's oracle (≤ 1e-8) and the
+   residual to the invariant rebuilt on the host (≤ 1e-12); one more df
+   update whose drive is replayed from the same (p, r) state, clean (bit
+   for bit) and with every active-kernel output poisoned (bit for bit); the
+   first push launch of kernel #2 of that drive held to its plain version
+   and timed beside its bound and ``torch.sparse``; and the phase-5
+   profiles of one more push df update.
 
-Prints the kernel table as one JSON line, then as its last line
+The kernel JSON line's ``launches`` add the pull path's (phase 3) and the
+push path's (phase 6).  Prints the kernel table as one JSON line, then as
+its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -340,6 +354,115 @@ def _work_bytes(nnz: int, rows: int, live_tiles: int, item: int) -> int:
                nnz * (item + 2) + live_tiles * 8)
 
 
+def _active_case(bsk, ops, mat, ids, n_act, x, src, dst, cnt_h,
+                 what: str) -> dict:
+    """Kernel #2 over the list ``ids`` (its first ``n_act`` entries) with
+    operand ``x``: held to its plain version on the listed rows (f64
+    tolerance), checked against and timed beside the ``torch.sparse`` CSR
+    product of those rows, and its bound: the fewest bytes of the listed
+    rows' nonzeros (:func:`_work_bytes`), the x entries they read, y and
+    the ids; flops 2 per nonzero."""
+    B, mt, n_rb = mat.block, mat.max_tiles, mat.n_rb
+    item = mat.tiles.element_size()
+    k = int(n_act.item())
+    act = ids[:k].long().cpu().numpy()
+    kw = dict(block=B, max_tiles=mt, semiring="sum")
+    args = (mat.tile_idx, mat.tile_cols, mat.tiles, x)
+    kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
+    ya = bsk.block_spmv_active_cuda(ids, *kargs, n_active=n_act, **kw)
+    yap = bsk.block_spmv_active_plain(ids, *args, **kw)
+    rows_act = torch.as_tensor(np.repeat(act, B) * B
+                               + np.tile(np.arange(B), k), device="cuda")
+    err = float((ya[rows_act] - yap[rows_act]).abs().max())
+    _check(bool(torch.allclose(ya[rows_act], yap[rows_act],
+                               rtol=TOLS["float64"], atol=TOLS["float64"])),
+           f"block_spmv_active ({what}): max abs err {err}")
+    live = mat.tile_cols_h >= 0
+    tid = mat.tile_idx_h.reshape(n_rb, mt)
+    live_a = live[act]
+    n_live_a = int(live_a.sum())
+    nnz_a = int(cnt_h[tid[act][live_a]].sum())
+    in_act = np.isin(dst // B, act)
+    n_xa = len(np.unique(src[in_act]))
+    n_xcb = len(np.unique(mat.tile_cols_h[act][live_a]))
+    work = (_work_bytes(nnz_a, k * B, n_live_a, item) + n_xa * item
+            + k * B * item + k * 4)
+    layout = (n_live_a * B * B * item + n_rb * 4 + 2 * k * mt * 4
+              + n_xcb * B * item + k * B * item)
+    pos = np.full(n_rb, -1, np.int64)
+    pos[act] = np.arange(k)
+    sub_rows = pos[dst[in_act] // B] * B + dst[in_act] % B
+    A_sub = _csr(sub_rows, src[in_act], k * B, mat.n_rows)
+    xv = x[:mat.n_rows]
+    lib = _time_ms(lambda: torch.mv(A_sub, xv), 50)
+    _check(bool(torch.allclose(ya[rows_act], torch.mv(A_sub, xv),
+                               rtol=1e-12, atol=1e-15)),
+           f"block_spmv_active ({what}) disagrees with the CSR product")
+    bound, by = _bound(work, 2 * nnz_a)
+    return dict(
+        name="block_spmv_active", route="cuda",
+        source="src/repro_torch/kernels/block_spmv/csrc/block_spmv.cu",
+        replaces="src/repro/kernels/block_spmv/block_spmv.py:117",
+        max_abs_err=err,
+        ms=_time_ms(lambda: bsk.block_spmv_active_cuda(
+            ids, *kargs, n_active=n_act, **kw), 200),
+        plain_ms=_time_ms(
+            lambda: bsk.block_spmv_active_plain(ids, *args, **kw), 3),
+        bound_ms=bound, bound_by=by, library_ms=lib,
+        work_bytes=work, layout_bytes=layout,
+        shape=f"{what}, {n_live_a} live tiles of {B}x{B} f64, {nnz_a} "
+        "nonzeros")
+
+
+def _push_bounds(mat, ids, n_act, x, src, dst, cnt_h) -> str:
+    """The push step's own work bounds for one kernel #2 launch of a push
+    sweep.  Its operand ``x`` is zero outside the selected source
+    column-blocks (and at every vertex it does not push), so the product
+    needs less than the candidate rows' every nonzero, which
+    :func:`_active_case` counts: (tiles) the nonzeros of the candidate
+    rows' live tiles in a selected column-block and the x entries of
+    those blocks; (vertices) the out-edges of the pushed vertices (x != 0)
+    and their x entries.  Both add y over the candidate rows and the ids;
+    flops 2 per nonzero."""
+    B, mt, n_rb = mat.block, mat.max_tiles, mat.n_rb
+    item = mat.tiles.element_size()
+    k = int(n_act.item())
+    act = ids[:k].long().cpu().numpy()
+    xnz = (x[:mat.n_cols] != 0).cpu().numpy()
+    sel_cb = np.zeros(mat.n_cb, bool)
+    sel_cb[np.flatnonzero(xnz) // B] = True
+    cols_a = mat.tile_cols_h[act]
+    in_sel = (cols_a >= 0) & sel_cb[np.maximum(cols_a, 0)]
+    tid = mat.tile_idx_h.reshape(n_rb, mt)[act]
+    nnz_t, live_t = int(cnt_h[tid[in_sel]].sum()), int(in_sel.sum())
+    x_t = int(sel_cb.sum()) * B
+    cand = np.zeros(n_rb, bool)
+    cand[act] = True
+    need = cand[dst // B] & xnz[src]
+    nnz_v = int(need.sum())
+    live_v = len(np.unique((dst[need] // B) * mat.n_cb + src[need] // B))
+    x_v = int(xnz.sum())
+    out = k * B * item + k * 4
+    lines = []
+    for what, nnz, live, xs in (("tiles", nnz_t, live_t, x_t),
+                                ("vertices", nnz_v, live_v, x_v)):
+        work = _work_bytes(nnz, k * B, live, item) + xs * item + out
+        bound, by = _bound(work, 2 * nnz)
+        lines.append(f"{what}: {bound:.5f} ms by {by} ({work} work bytes; "
+                     f"{nnz} nonzeros in {live} live tiles, {xs} x entries)")
+    return (f"push step's own bound ({int(sel_cb.sum())} selected source "
+            f"column-blocks, {x_v} pushed vertices): " + "; ".join(lines))
+
+
+def _print_row(row: dict, smi: str) -> None:
+    print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}"
+          f" ms by {row['bound_by']}: {row['work_bytes']} work bytes; "
+          f"layout_bytes {row['layout_bytes']}), plain "
+          f"{row['plain_ms']:.3f} ms, torch.sparse "
+          f"{row['library_ms']:.4f} ms, max abs err "
+          f"{row['max_abs_err']:.3e}, {row['shape']} [{smi}]", flush=True)
+
+
 def _time_kernels(bsk, ops, sess, rng) -> list:
     """Both kernels at the main path's shapes, held to their plain versions.
     The bound counts the work, whatever layout implements it: the matrix in
@@ -409,16 +532,12 @@ def _time_kernels(bsk, ops, sess, rng) -> list:
     ids_h[:k] = act
     ids = torch.as_tensor(ids_h, device="cuda")
     n_act = torch.tensor([k], dtype=torch.int64, device="cuda")
-    ya = bsk.block_spmv_active_cuda(ids, *kargs, n_active=n_act, **kw)
-    yap = bsk.block_spmv_active_plain(ids, *args, **kw)
-    rows_act = torch.as_tensor(np.repeat(act, B) * B
-                               + np.tile(np.arange(B), k), device="cuda")
-    err2 = float((ya[rows_act] - yap[rows_act]).abs().max())
-    _check(bool(torch.allclose(ya[rows_act], yap[rows_act],
-                               rtol=TOLS["float64"], atol=TOLS["float64"])),
-           f"block_spmv_active at n = {sess.n}: max abs err {err2}")
+    row2 = _active_case(bsk, ops, mat, ids, n_act, x, src, dst, cnt_h,
+                        f"{k} of {n_rb} row-blocks (1 %)")
     # the or semiring (the DF frontier expansion) on the same list: a 0/1
     # indicator of ~5 % of the vertices, exact against the plain version
+    rows_act = torch.as_tensor(np.repeat(act, B) * B
+                               + np.tile(np.arange(B), k), device="cuda")
     x_or = ops._pad_x(mat, torch.as_tensor(rng.random(sess.n_pad) < 0.05,
                                            device="cuda").to(x.dtype))
     kw_or = dict(kw, semiring="or")
@@ -433,38 +552,7 @@ def _time_kernels(bsk, ops, sess, rng) -> list:
            and bool(yo[rows_act].any()),
            f"or semiring at n = {sess.n} must give a 0/1 indicator with "
            "some ones")
-    live_a = live[act]
-    n_live_a = int(live_a.sum())
-    nnz_a = int(cnt_h[tid[act][live_a]].sum())
-    in_act = np.isin(dst // B, act)
-    n_xa = len(np.unique(src[in_act]))
-    n_xcb = len(np.unique(mat.tile_cols_h[act][live_a]))
-    work2 = (_work_bytes(nnz_a, k * B, n_live_a, item) + n_xa * item
-             + k * B * item + k * 4)
-    layout2 = (n_live_a * B * B * item + n_rb * 4 + 2 * k * mt * 4
-               + n_xcb * B * item + k * B * item)
-    pos = np.full(n_rb, -1, np.int64)
-    pos[act] = np.arange(k)
-    sub_rows = pos[dst[in_act] // B] * B + dst[in_act] % B
-    A_sub = _csr(sub_rows, src[in_act], k * B, sess.n_pad)
-    lib2 = _time_ms(lambda: torch.mv(A_sub, xv), 50)
-    _check(bool(torch.allclose(ya[rows_act], torch.mv(A_sub, xv),
-                               rtol=1e-12, atol=1e-15)),
-           "block_spmv_active disagrees with the CSR product")
-    bound2, by2 = _bound(work2, 2 * nnz_a)
-    table.append(dict(
-        name="block_spmv_active", route="cuda",
-        source="src/repro_torch/kernels/block_spmv/csrc/block_spmv.cu",
-        replaces="src/repro/kernels/block_spmv/block_spmv.py:117",
-        max_abs_err=err2,
-        ms=_time_ms(lambda: bsk.block_spmv_active_cuda(
-            ids, *kargs, n_active=n_act, **kw), 200),
-        plain_ms=_time_ms(
-            lambda: bsk.block_spmv_active_plain(ids, *args, **kw), 3),
-        bound_ms=bound2, bound_by=by2, library_ms=lib2,
-        work_bytes=work2, layout_bytes=layout2,
-        shape=f"{k} of {n_rb} row-blocks (1 %), {n_live_a} live tiles of "
-        f"{B}x{B} f64, {nnz_a} nonzeros"))
+    table.append(row2)
     full_ids = torch.arange(n_rb, dtype=torch.int32, device="cuda")
     n_full = torch.tensor([n_rb], dtype=torch.int64, device="cuda")
     t_full = _time_ms(lambda: bsk.block_spmv_active_cuda(
@@ -521,6 +609,7 @@ def _profile_update(sess, random_batch) -> None:
     """Where one more df update's wall time goes: cProfile's own time per
     function (host work; the waits for the card show up in the driver's
     poll, ``Tensor.cpu``)."""
+    driver = sess.config.driver
     import cProfile
     import pstats
     dels, ins = random_batch(sess.hg, 1e-4, seed=999, deletions_frac=0.2)
@@ -535,7 +624,7 @@ def _profile_update(sess, random_batch) -> None:
     rows = sorted(((tt, f"{Path(fn).name}:{line}({name})", nc)
                    for (fn, line, name), (_, nc, tt, _, _) in stats.items()),
                   reverse=True)[:12]
-    print(f"profile of one df update ({wall * 1e3:.1f} ms wall, "
+    print(f"profile of one {driver} df update ({wall * 1e3:.1f} ms wall, "
           f"{res.stats.sweeps} sweeps, {res.host_syncs} host syncs), own "
           "time per function:", flush=True)
     for tt, where, nc in rows:
@@ -548,6 +637,7 @@ def _device_busy(sess, random_batch) -> None:
     (device time of every kernel it ran, one stream, so no overlap) against
     the update's wall time under the profiler."""
     from torch.autograd import DeviceType
+    driver = sess.config.driver
     from torch.profiler import ProfilerActivity, profile
     dels, ins = random_batch(sess.hg, 1e-4, seed=1000, deletions_frac=0.2)
     torch.cuda.synchronize()
@@ -562,15 +652,168 @@ def _device_busy(sess, random_batch) -> None:
                       if e.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     if busy_ms == 0:
-        print("device busy time of one df update: not measured (the "
+        print(f"device busy time of one {driver} df update: not measured (the "
               "profiler recorded no device time)", flush=True)
         return
-    print(f"device busy time of one df update: {busy_ms:.2f} ms of "
+    print(f"device busy time of one {driver} df update: {busy_ms:.2f} ms of "
           f"{wall_ms:.2f} ms wall under the profiler (idle share "
           f"{1 - busy_ms / wall_ms:.3f}); top kernels by device time:",
           flush=True)
     for ms, count, key in kernels[:6]:
         print(f"  {ms:8.3f} ms {count:6d} launches  {key[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the push driver on the main path's graph and traffic
+# ---------------------------------------------------------------------------
+
+def _push_redrives(bsk, sess, dels, ins) -> tuple:
+    """One more df push update whose drive is replayed from the same
+    (p, r) state: once clean (must give bit-identical p, r and counters)
+    and once with every active-kernel output poisoned to NaN (must equal
+    the clean drive bit for bit).  Returns the first push launch's
+    operands (ids, count, masked x) of the clean replay."""
+    seen = {}
+    real_drive = sess._drive_push
+
+    def capture(P0):
+        seen["P0"], seen["R0"] = P0.clone(), sess._residual.clone()
+        return real_drive(P0)
+
+    sess._drive_push = capture
+    try:
+        res = sess.update(dels, ins)
+    finally:
+        del sess._drive_push
+    P1, R1 = sess.R, sess._residual
+    real_active = bsk.tile_spmv_active
+    first = []
+
+    def record(active_ids, tile_idx, tile_cols, tiles, x, **kw):
+        if not first:
+            first.append((active_ids.clone(), kw["n_active"].clone(),
+                          x.clone()))
+        return real_active(active_ids, tile_idx, tile_cols, tiles, x, **kw)
+
+    def poisoned(active_ids, tile_idx, tile_cols, tiles, x, *, index,
+                 **kw):
+        out = torch.full((tile_cols.shape[0] * kw["block"],), float("nan"),
+                         dtype=x.dtype, device=x.device)
+        return bsk.block_spmv_active_cuda(active_ids, tile_idx, tile_cols,
+                                          index, x, out=out, **kw)
+
+    for name, fn in (("repeated", record), ("poisoned-output", poisoned)):
+        sess._residual = seen["R0"].clone()
+        bsk.tile_spmv_active = fn
+        try:
+            P2, st2, _, _ = sess._drive_push(seen["P0"])
+        finally:
+            bsk.tile_spmv_active = real_active
+        _check(bool(torch.equal(P2, P1))
+               and bool(torch.equal(sess._residual, R1))
+               and st2 == res.stats,
+               f"the {name} push drive differs from the session's drive")
+    sess.R, sess._residual = P1, R1
+    print(f"push determinism: a repeated drive and a poisoned-output drive "
+          f"from the same (p, r) state equal the session's drive bit for "
+          f"bit ({res.stats.sweeps} sweeps)", flush=True)
+    return first[0]
+
+
+def _push_phase(bsk, ops, hg, cfg, batches, pull_df, nd_batch, ref,
+                smi: str) -> dict:
+    """The push driver on the same graph and traffic as phase 3; returns
+    its launch counts.  Also holds and times the kernel #2 launch at the
+    push's shapes, and profiles one more push update."""
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.push_engine import residual_from_host
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    cold_maxr = float(sess._residual.abs().max())
+    cold = (bsk.block_spmv_cuda.launches, bsk.block_spmv_active_cuda.launches)
+    print(f"push open + cold solve: {t_open:.2f} s; max|r| {cold_maxr:.3e}; "
+          f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
+    _check(cold_maxr <= TAU, f"cold push solve left max|r| = {cold_maxr}")
+    sess.warmup()
+    df = []
+    for i, ((dels, ins), pull) in enumerate(zip(batches, pull_df)):
+        res = sess.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        df.append(res)
+        print(f"push df update {i}: {res.wall_time_s * 1e3:.2f} ms "
+              f"(pull {pull.wall_time_s * 1e3:.2f}), sweeps "
+              f"{res.stats.sweeps} ({pull.stats.sweeps}), pushed blocks "
+              f"{res.pushed_blocks}, candidate blocks "
+              f"{res.stats.blocks_processed} (pull blocks "
+              f"{pull.stats.blocks_processed}), edges "
+              f"{res.stats.edges_processed} ({pull.stats.edges_processed}), "
+              f"host syncs {res.host_syncs} ({pull.host_syncs}), residual "
+              f"mass {res.residual_mass:.3e}, converged {res.converged}",
+              flush=True)
+        _check(res.host_syncs == 1 + res.stats.sweeps // 8 + 1,
+               f"push df update {i} made {res.host_syncs} host syncs; the "
+               "floor is one p_src read and one poll per chunk")
+    nd = sess.update(*nd_batch, variant="nd")
+    torch.cuda.synchronize()
+    print(f"push nd update: {nd.wall_time_s * 1e3:.2f} ms, sweeps "
+          f"{nd.stats.sweeps}, edges {nd.stats.edges_processed}, host syncs "
+          f"{nd.host_syncs}", flush=True)
+    top_vals, top_ids = sess.top_k(10)
+    q = sess.query(top_ids)
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches}
+    walls = np.array([r.wall_time_s for r in df]) * 1e3
+    pwalls = np.array([r.wall_time_s for r in pull_df]) * 1e3
+    print(f"push df per-update wall: p50 {np.percentile(walls, 50):.2f} ms, "
+          f"p95 {np.percentile(walls, 95):.2f} ms (pull p50 "
+          f"{np.percentile(pwalls, 50):.2f}, p95 "
+          f"{np.percentile(pwalls, 95):.2f}); edges per update "
+          f"{np.mean([r.stats.edges_processed for r in df]):.0f} (pull "
+          f"{np.mean([r.stats.edges_processed for r in pull_df]):.0f}); "
+          f"launches on the push path: {launches} [{smi}]", flush=True)
+    print(f"push report: {sess.report()}", flush=True)
+    _check(all(r.converged for r in df) and nd.converged,
+           "a push update did not converge")
+    _check(sess.report().retraces_post_warmup == 0,
+           "a kernel was built after the push session's warmup")
+    _check(launches["block_spmv_active"] > 0 and launches["block_spmv"] > 0,
+           f"the push path missed a kernel: {launches}")
+    _check(bool(np.array_equal(q, top_vals)), "push query != top_k values")
+
+    r = sess.ranks
+    err = float(np.abs(r[:sess.n] - ref[:sess.n]).max())
+    drift = float(np.abs(sess._residual.cpu().numpy() - residual_from_host(
+        sess.hg, sess._out_deg_host, r, cfg.alpha)).max())
+    mass = float(r[:sess.n].sum())
+    print(f"push oracle: L_inf {err:.3e}, invariant drift "
+          f"max|r - residual_from_host| {drift:.3e}, |mass - 1| "
+          f"{abs(mass - 1):.3e}", flush=True)
+    _check(bool(np.isfinite(r).all()), "push ranks are not finite")
+    _check(err <= 1e-8, f"push L_inf vs numpy_reference {err} > 1e-8")
+    _check(drift <= 1e-12, f"push residual drift {drift} > 1e-12")
+    _check(bool(np.allclose(top_vals, ref[top_ids], rtol=0, atol=1e-8)),
+           "push top_k values disagree with the oracle")
+
+    dels, ins = random_batch(sess.hg, 1e-4, seed=2000, deletions_frac=0.2)
+    ids, n_act, x = _push_redrives(bsk, sess, dels, ins)
+    mat = sess.inc.mat
+    src, dst = sess.hg.snapshot(block_size=mat.block).in_edges_host()
+    cnt_h = mat.index.cnt.cpu().numpy().astype(np.int64)
+    row = _active_case(bsk, ops, mat, ids, n_act, x, src, dst, cnt_h,
+                       f"push: first sweep of a df update, {int(n_act.item())}"
+                       f" candidate of {mat.n_rb} row-blocks")
+    _print_row(row, smi)
+    print(f"{_push_bounds(mat, ids, n_act, x, src, dst, cnt_h)} [{smi}]",
+          flush=True)
+    _profile_update(sess, random_batch)
+    _device_busy(sess, random_batch)
+    sess.close()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -637,10 +880,11 @@ def main() -> None:
           f"({mat.index.tail} entries of {mat.index.entry_capacity}); "
           f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
     sess.warmup()
-    df, growth = [], []
+    df, growth, batches = [], [], []
     for i in range(N_DF_UPDATES):
         dels, ins = random_batch(sess.hg, 1e-4, seed=100 + i,
                                  deletions_frac=0.2)
+        batches.append((dels, ins))
         idx = sess.inc.mat.index            # refreshed in place
         tail0, e_cap0 = idx.tail, idx.entry_capacity
         res = sess.update(dels, ins, variant="df")
@@ -658,6 +902,7 @@ def main() -> None:
                 bsk.block_spmv_active_cuda.launches)
     dels, ins = random_batch(sess.hg, 1e-4, seed=100 + N_DF_UPDATES,
                              deletions_frac=0.2)
+    nd_batch = (dels, ins)
     nd = sess.update(dels, ins, variant="nd")
     torch.cuda.synchronize()
     print(f"nd update (baseline): {nd.wall_time_s * 1e3:.2f} ms, sweeps "
@@ -709,19 +954,20 @@ def main() -> None:
     _check(len(growth) > 0, "no df update re-packed at the index's tail")
     _time_compaction(bsk, ops, sess.inc.mat, growth)
     for row in table:
-        row["launches"] = launches[row["name"]]
-        print(f"{row['name']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}"
-              f" ms by {row['bound_by']}: {row['work_bytes']} work bytes; "
-              f"layout_bytes {row['layout_bytes']}), plain "
-              f"{row['plain_ms']:.3f} ms, torch.sparse "
-              f"{row['library_ms']:.4f} ms, max abs err "
-              f"{row['max_abs_err']:.3e}, {row['shape']} [{smi}]",
-              flush=True)
+        _print_row(row, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     _profile_update(sess, random_batch)
     _device_busy(sess, random_batch)
     sess.close()
+
+    # -- phase 6: the push driver, same graph and traffic -------------------
+    push_launches = _push_phase(
+        bsk, ops, hg, EngineConfig(block_size=BLOCK, dtype=torch.float64,
+                                   tau=TAU, driver="push"),
+        batches, df, nd_batch, ref, smi)
+    for row in table:
+        row["launches"] = launches[row["name"]] + push_launches[row["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in table]}))

@@ -38,7 +38,6 @@ _LATER = {
     "engine:blocked": "A 7 (blocked Gauss–Seidel engine)",
     "engine:walk": "A 13 (walk engine / PPR)",
     "engine:distributed": "A 14 (sharded topology)",
-    "driver:push": "A 6 (push driver)",
     "topology:sharded": "A 14 (sharded topology)",
     "durability:wal": "A 9 (durability)",
     "fault_domain": "A 9 (durability and fault domains)",
@@ -51,7 +50,8 @@ _LATER = {
 def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
-        "this slice runs the untiered single-device pull stream")
+        "the port runs the untiered single-device stream (pull or push "
+        "driver)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +115,12 @@ class EngineConfig:
                 "switch — a CUDA tensor always runs the hand-written kernel "
                 "and a CPU tensor (device='cpu', asked for explicitly) its "
                 "plain version; leave backend=None")
+        if self.driver == "push" and self.engine not in (None,) + ENGINES:
+            raise ValueError(
+                "driver='push' is the residual forward-push mode of the "
+                "streaming pallas engine; engine resolves to "
+                f"{self.engine!r} — pass engine='pallas' (or leave the "
+                "default) to select it")
         if self.engine not in (None,) + ENGINES:
             key = f"engine:{self.engine}"
             if key in _LATER:
@@ -179,7 +185,14 @@ class EngineConfig:
             raise ValueError(
                 f"driver={self.driver!r} invalid; expected one of {DRIVERS}")
         if self.driver == "push":
-            raise _later("driver='push'", "driver:push")
+            if self.mode != "lf":
+                raise ValueError(
+                    "driver='push' has no blocked-barrier analogue; "
+                    f"mode must be 'lf' (got {self.mode!r})")
+            if self.faults is not None:
+                raise ValueError(
+                    "driver='push' does not host thread fault tables; "
+                    "run fault experiments on driver='pull'")
 
     # -- resolution helpers --------------------------------------------------
     @property

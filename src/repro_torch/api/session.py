@@ -1,10 +1,11 @@
-"""`PageRankSession` — the stream-mode pull session of the port.
+"""`PageRankSession` — the stream-mode session of the port.
 
-Ports the untiered, single-device, pull-driver stream mode of
-``src/repro/api/session.py``: ``_seed_affected``, ``_apply_operand_delta``,
-``from_graph``, ``_init_stream``, ``_drive``, ``_update_stream``,
-``update``, ``query``, ``top_k``, ``ranks``, ``warmup``, ``close`` and
-``report``::
+Ports the untiered, single-device stream mode of
+``src/repro/api/session.py`` with both drivers: ``_seed_affected``,
+``_apply_operand_delta``, ``from_graph``, ``_init_stream``, ``_drive``,
+``_drive_push``, ``_residual_recompute``, ``_seed_push``,
+``_update_stream``, ``update``, ``recompute`` (``static``/``nd``),
+``query``, ``top_k``, ``ranks``, ``warmup``, ``close`` and ``report``::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -14,10 +15,16 @@ Ports the untiered, single-device, pull-driver stream mode of
     sess.query([3, 17, 42])         # device gather, only the values move
     sess.top_k(10)
 
+    push = PageRankSession.from_graph(
+        hg, config=EngineConfig(tau=1e-10, driver="push"))
+    push.update(dels, ins)          # residual seed + forward push
+
 The graph is snapshotted once; the capacity-padded pull matrix and the
 per-vertex / per-block engine operands live on the device and are patched
-in O(batch) per update; every update re-enters the fused driver of
-:mod:`repro_torch.core.pallas_engine`.
+in O(batch) per update; every update re-enters the fused pull driver of
+:mod:`repro_torch.core.pallas_engine` or, with ``driver="push"``, the push
+driver of :mod:`repro_torch.core.push_engine`, whose session keeps a
+residual beside the ranks and seeds it per batch on the host.
 
 One ordering differs from the reference, because the port patches the tile
 pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
@@ -39,11 +46,13 @@ from repro_torch.api.config import EngineConfig
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
 from repro_torch.core import pallas_engine as pe
+from repro_torch.core import push_engine as pshe
 from repro_torch.core.blocked import SweepStats
 from repro_torch.core.delta import signed_edge_delta, validate_edge_batch
 from repro_torch.core.graph import HostGraph, initial_ranks
 from repro_torch.core.incremental import (IncrementalPullMatrix,
                                           effective_batch)
+from repro_torch.core.pagerank import PagerankResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels.block_spmv import block_spmv as bsk
 from repro_torch.kernels.block_spmv import ops
@@ -129,7 +138,10 @@ class StreamBatchResult:
     wall_time_s: float            # full step: delta + seed + converge
     batch_edges: int              # raw batch size (before no-op filtering)
     driver_retraces: int = 0      # kernel builds during this step
-    host_syncs: int = 0           # device-to-host reads of the drive
+    host_syncs: int = 0           # device-to-host reads of the step
+    # -- push-driver accounting (None on the pull driver) --------------------
+    residual_mass: Optional[float] = None     # ‖r‖₁ at drive exit
+    pushed_blocks: Optional[int] = None       # source blocks pushed
 
     @property
     def converged(self) -> bool:
@@ -161,6 +173,8 @@ class SessionReport:
     edges_processed_history: List[int] = dataclasses.field(
         default_factory=list)
     host_syncs_history: List[int] = dataclasses.field(default_factory=list)
+    residual_mass_last: Optional[float] = None  # push: ‖r‖₁ at last exit
+    pushed_blocks: Optional[int] = None         # push: total source blocks
 
 
 class PageRankSession:
@@ -187,6 +201,11 @@ class PageRankSession:
         self._history: List[StreamBatchResult] = []
         self._warm_idx: Optional[int] = None
         self._queries = 0
+        # residual forward-push driver: a device-resident residual next to
+        # the ranks, seeded in O(batch) per update
+        self._push = config.driver == "push"
+        self._residual: Optional[torch.Tensor] = None
+        self._hg_prev: Optional[HostGraph] = None
         self._init_stream(r0)
 
     @classmethod
@@ -224,7 +243,16 @@ class PageRankSession:
         self._rb_in = torch.tensor(self.inc.aux.rb_in, device=dev)
         self._rb_out = torch.tensor(self.inc.aux.rb_out, device=dev)
         self._bmat = torch.tensor(self.inc.aux.bmat, device=dev)
-        if r0 is None:
+        # host twin of the out-degree mirror, patched in O(batch): the push
+        # seed divides by the sources' degrees before and after a batch
+        self._out_deg_host = g0.out_deg.cpu().numpy().copy()
+        if r0 is None and self._push:
+            # cold push solve: p = 0, r = b — the invariant holds trivially
+            # and the drive pushes the whole teleport mass to the fixed point
+            self._residual = self._on_valid((1.0 - cfg.alpha) / self.n)
+            r0, _, _, _ = self._drive_push(
+                torch.zeros(self.n_pad, dtype=dt, device=dev))
+        elif r0 is None:
             r0, _ = pe.run_pallas(
                 g0, initial_ranks(g0, dt), g0.vertex_valid, mode=cfg.mode,
                 expand=False, alpha=cfg.alpha, tau=cfg.tau,
@@ -235,6 +263,10 @@ class PageRankSession:
         if r0.shape[0] < self.n_pad:        # length-n caller state
             r0 = torch.cat([r0, r0.new_zeros(self.n_pad - r0.shape[0])])
         self.R = r0[:self.n_pad]
+        if self._push and self._residual is None:
+            # caller-provided ranks: rebuild the exact residual invariant
+            # before the first update seeds against it
+            self._residual = self._residual_recompute(self.R)
 
     # -- the fused solve -----------------------------------------------------
     def _drive(self, R0, affected, *, expand: bool, full: bool = False
@@ -254,10 +286,95 @@ class PageRankSession:
             max_iterations=cfg.max_iterations, full=full)
         return R, pe._stats_from_vec(sv), syncs
 
+    # -- the residual forward-push solve -------------------------------------
+    def _on_valid(self, value: float) -> torch.Tensor:
+        """``value`` on the valid vertices, 0 on the padding: the static
+        start ``1/n`` and the teleport residual ``b = (1−α)/n`` of p = 0."""
+        v = torch.tensor(value, dtype=self._dtype, device=self.device)
+        return torch.where(self.valid, v, torch.zeros_like(v))
+
+    def _drive_push(self, P0) -> Tuple[torch.Tensor, SweepStats, dict, int]:
+        """One fused push drive over the device-resident operand mirrors:
+        ranks + carried residual in, ranks + shrunk residual out; returns
+        (ranks, stats, push extras, host syncs made)."""
+        P, Rr, sv, syncs = pshe._push_driver(
+            self.inc.mat, P0, self._residual, self.valid, self._out_deg,
+            self._bmat, self._alpha, self._tau, n=self.n,
+            block_size=self.block_size,
+            max_iterations=self.config.max_iterations)
+        self._residual = Rr
+        stats, extras = pshe.push_stats_from_vec(sv)
+        return P, stats, extras, syncs
+
+    def _residual_recompute(self, P) -> torch.Tensor:
+        """Exact O(m) residual rebuild ``r = b + M·p − p`` for the current
+        graph (nd / given-ranks path): one launch of kernel #1."""
+        return pshe.residual_full(self.inc.mat, P, self.valid, self._out_deg,
+                                  self._alpha, n=self.n)
+
+    def _seed_push(self, variant: str, sources: np.ndarray,
+                   deg_old_src: np.ndarray) -> Tuple[torch.Tensor, int]:
+        """Set the session residual for one applied batch and return
+        ``(P0, host syncs made)``.  ``df`` is the O(batch·deg) path: the
+        batch changes the pull matrix only in its effective source columns
+        (``sources``, whose pre-batch degrees are ``deg_old_src``), so
+        ``Δr = (M' − M)·p`` is enumerated on the host and applied by one
+        deterministic device scatter; reading ``p`` at the sources is the
+        one host sync.  ``nd`` keeps ``p`` and rebuilds the exact residual
+        (O(m)); ``static`` restarts cold (p = 0, r = b)."""
+        if variant == "df":
+            syncs = 0
+            if len(sources):
+                p_src = self.R[ops._upload(sources, self.device)]
+                p_src = p_src.cpu().numpy()
+                syncs = 1
+                sidx, svals = pshe.residual_seed_host(
+                    self._hg_prev, self.hg, sources, p_src, deg_old_src,
+                    self._out_deg_host[sources], float(self.config.alpha))
+                self._residual = pshe.scatter_residual(self._residual, sidx,
+                                                       svals)
+            return self.R, syncs
+        if variant == "nd":
+            self._residual = self._residual_recompute(self.R)
+            return self.R, 0
+        self._residual = self._on_valid((1.0 - self.config.alpha) / self.n)
+        return torch.zeros(self.n_pad, dtype=self._dtype,
+                           device=self.device), 0
+
+    def _solve(self, variant: str, affected=None, sources=None,
+               deg_old_src=None) -> Tuple[torch.Tensor, SweepStats,
+                                          Optional[dict], int]:
+        """One solve of the current graph: the start state and active set
+        of ``variant`` on the session's driver, then its drive.  Returns
+        (ranks, stats, push extras or None, host syncs made).  ``df`` takes
+        the seeded ``affected`` mask (pull) or the batch's effective
+        ``sources`` and their pre-batch degrees (push); ``nd`` starts warm
+        and ``static`` cold, with every vertex affected."""
+        if self._push:
+            P0, seed_syncs = self._seed_push(variant, sources, deg_old_src)
+            R, stats, extras, syncs = self._drive_push(P0)
+            return R, stats, extras, syncs + seed_syncs
+        if variant == "df":
+            R0, expand = self.R, True
+        else:
+            affected, expand = self.valid, False
+            R0 = self.R if variant == "nd" else self._on_valid(1.0 / self.n)
+        # nd/static mark every vertex and never expand: all blocks active
+        full = not expand and self.config.active_policy == "affected"
+        R, stats, syncs = self._drive(R0, affected, expand=expand, full=full)
+        return R, stats, None, syncs
+
     def _update_stream(self, deletions, insertions, variant: str = "df"
                        ) -> StreamBatchResult:
         """Stream step: operand-mirror patch → DF seed over G^{t-1} → tile
-        scatter → DF seed over G^t → fused convergence loop."""
+        scatter → DF seed over G^t → fused convergence loop.  On a push
+        session the residual seed replaces both DF seed passes."""
+        if variant == "dt" and self._push:
+            raise ValueError(
+                "driver='push' does not implement the dt reachability "
+                "marking (it walks throwaway snapshots of the pull "
+                "iterate); use variant='df' or 'nd', or a driver='pull' "
+                "session")
         if variant == "dt":
             raise NotImplementedError(
                 "variant='dt' is not ported yet: its reachability marking "
@@ -269,7 +386,16 @@ class PageRankSession:
         dev, B = self.device, self.block_size
         dels_eff, ins_eff = effective_batch(self.hg, deletions, insertions)
         rows, cols, vals = signed_edge_delta(dels_eff, ins_eff)
+        affected = sources = deg_old_src = None
+        if self._push:
+            # the push seed divides by the PRE-batch degrees of the
+            # effective sources: read them before the mirror patch
+            sources = np.unique(np.concatenate([dels_eff[:, 0],
+                                                ins_eff[:, 0]]))
+            deg_old_src = self._out_deg_host[sources]
         if len(rows):
+            np.add.at(self._out_deg_host, cols,
+                      vals.astype(self._out_deg_host.dtype))
             _apply_operand_delta(
                 self._out_deg, self._rb_in, self._rb_out, self._bmat,
                 torch.as_tensor(rows, device=dev),
@@ -277,7 +403,7 @@ class PageRankSession:
                 torch.as_tensor(vals.astype(np.int32), device=dev),
                 block=B)
         seed = h_prev = None
-        if variant == "df":
+        if variant == "df" and not self._push:
             batch_dev = fr.pack_batch(self.n_pad, deletions, insertions,
                                       device=dev)
             seed = _seed_sources(self._bmat, batch_dev, self.valid,
@@ -285,38 +411,34 @@ class PageRankSession:
             h_prev = _seed_pass(self.inc.mat, seed)     # G^{t-1}
         self.inc.advance(self.hg, None, deletions, insertions,
                          effective=(dels_eff, ins_eff))
+        if self._push:
+            self._hg_prev = self.hg         # the seed walks both key sets
         self.hg = self.hg.apply_batch(deletions, insertions)
-
-        if variant == "df":
-            hit = h_prev | _seed_pass(self.inc.mat, seed)   # ∪ G^t
-            affected = _seed_mask(hit, seed, self.valid, block_size=B)
-            R0, expand = self.R, True
-        elif variant == "nd":
-            affected, R0, expand = self.valid, self.R, False
-        else:   # static
-            affected = self.valid
-            R0 = torch.where(self.valid,
-                             torch.tensor(1.0 / self.n, dtype=self._dtype,
-                                          device=dev), 0)
-            expand = False
-        # nd/static mark every vertex and never expand: all blocks active
-        full = (not expand and self.config.active_policy == "affected")
-        R, stats, syncs = self._drive(R0, affected, expand=expand, full=full)
-        self.R = R
         raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
                + np.asarray(insertions).reshape(-1, 2).shape[0])
+
+        if variant == "df" and not self._push:
+            hit = h_prev | _seed_pass(self.inc.mat, seed)       # ∪ G^t
+            affected = _seed_mask(hit, seed, self.valid, block_size=B)
+        R, stats, extras, syncs = self._solve(variant, affected, sources,
+                                              deg_old_src)
+        self.R = R
         return StreamBatchResult(
             ranks=R, stats=stats, wall_time_s=time.perf_counter() - t0,
             batch_edges=raw, driver_retraces=bsk.builds() - builds0,
-            host_syncs=syncs)
+            host_syncs=syncs,
+            residual_mass=None if extras is None else extras["residual_l1"],
+            pushed_blocks=None if extras is None else extras["pushed_blocks"])
 
     # -- updates -------------------------------------------------------------
     def update(self, deletions, insertions, *, variant: str = "df"
                ) -> StreamBatchResult:
         """Apply one edge batch and reconverge.  ``variant``: ``"df"``
-        (Dynamic Frontier, the paper's algorithm), ``"nd"`` (warm start, all
-        affected) or ``"static"`` (cold start, all affected); ``"dt"``
-        raises ``NotImplementedError`` in this slice."""
+        (Dynamic Frontier, the paper's algorithm; on a push session the
+        O(batch) residual seed), ``"nd"`` (warm start, all affected) or
+        ``"static"`` (cold start, all affected); ``"dt"`` raises
+        ``NotImplementedError`` on a pull session (not ported yet) and
+        ``ValueError`` on a push session (no push analogue)."""
         self._ensure_open()
         if variant not in VARIANTS:
             raise ValueError(f"variant={variant!r} invalid; "
@@ -332,6 +454,34 @@ class PageRankSession:
                 f"reaching tau={self.config.tau} — serving the best iterate",
                 SweepCapWarning, stacklevel=2)
         return res
+
+    # -- recompute -----------------------------------------------------------
+    def recompute(self, variant: str = "static") -> PagerankResult:
+        """Re-solve the session's **current** graph: ``"static"`` from a
+        cold start, ``"nd"`` warm from the session's ranks (every vertex
+        affected; a push session rebuilds its residual exactly).  The
+        reference's ``"df"``/``"dt"`` replay of the last batch is not
+        ported on a pull session and has no push analogue."""
+        self._ensure_open()
+        if variant not in VARIANTS:
+            raise ValueError(f"variant={variant!r} invalid; "
+                             f"expected one of {VARIANTS}")
+        if variant in ("df", "dt") and self._push:
+            raise ValueError(
+                f"recompute({variant!r}) replays the pull driver's "
+                "frontier marking; a driver='push' session re-solves via "
+                "variant='static' or 'nd'")
+        if variant in ("df", "dt"):
+            raise NotImplementedError(
+                f"recompute({variant!r}) replays the last batch with the "
+                "pull frontier marking (frontier.initial_affected / "
+                "dt_affected), which comes with ROADMAP item A 4's "
+                "remaining frontier helpers; use 'static' or 'nd'")
+        t0 = time.perf_counter()
+        R, stats, _, _ = self._solve(variant)
+        self.R = R
+        return PagerankResult(ranks=R, stats=stats,
+                              wall_time_s=time.perf_counter() - t0)
 
     # -- serving reads -------------------------------------------------------
     def _vertex_ids(self, vertices) -> np.ndarray:
@@ -399,7 +549,8 @@ class PageRankSession:
             return
         self._closed = True
         for attr in ("R", "inc", "valid", "_out_deg", "_rb_in", "_rb_out",
-                     "_bmat", "_fault_tables"):
+                     "_bmat", "_fault_tables", "_residual", "_out_deg_host",
+                     "_hg_prev"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -413,12 +564,15 @@ class PageRankSession:
     # -- warmup / reporting --------------------------------------------------
     def warmup(self) -> None:
         """Run the per-batch pipeline once without perturbing graph or rank
-        state — a zero-value delta on vertex 0's self-loop tile and an
+        state — a zero-value delta on vertex 0's self-loop tile, on a push
+        session a residual scatter of one zero (its result dropped), and an
         empty-batch step — so the kernel library is built and loaded and the
         allocator holds the step's buffers before the first real update."""
         self._ensure_open()
         z = np.zeros(1, np.int64)
         self.inc.mat = ops.apply_delta(self.inc.mat, z, z, np.zeros(1))
+        if self._push:
+            pshe.scatter_residual(self._residual, z, np.zeros(1))
         empty = np.zeros((0, 2), np.int64)
         self._update_stream(empty, empty)
         self._warm_idx = len(self._history)
@@ -450,7 +604,12 @@ class PageRankSession:
             sweeps_history=[int(r.stats.sweeps) for r in hist],
             edges_processed_history=[int(r.stats.edges_processed)
                                      for r in hist],
-            host_syncs_history=[int(r.host_syncs) for r in hist])
+            host_syncs_history=[int(r.host_syncs) for r in hist],
+            driver=self.config.driver,
+            residual_mass_last=next((r.residual_mass for r in reversed(hist)
+                                     if r.residual_mass is not None), None),
+            pushed_blocks=(sum(r.pushed_blocks for r in hist)
+                           if self._push and hist else None))
 
     def _device_bytes(self) -> Optional[dict]:
         """Per-component device-resident bytes (the memory audit)."""
@@ -464,4 +623,6 @@ class PageRankSession:
             "slot_tables": mat.tile_cols.nbytes + mat.tile_idx.nbytes,
             "operand_mirrors": (self._out_deg.nbytes + self._rb_in.nbytes
                                 + self._rb_out.nbytes + self._bmat.nbytes),
+            "residual": (self._residual.nbytes if self._residual is not None
+                         else 0),
         }

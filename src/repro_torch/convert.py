@@ -37,11 +37,25 @@ def block_sparse_from_numpy(tiles: np.ndarray, tile_cols: np.ndarray,
 
 def session_from_numpy(n: int, edges: np.ndarray, ranks: np.ndarray,
                        config: Optional[EngineConfig] = None,
-                       device="cuda") -> PageRankSession:
+                       device="cuda",
+                       residual: Optional[np.ndarray] = None
+                       ) -> PageRankSession:
     """A port session over the graph ``(n, edges)`` (self-loops excluded,
     as ``HostGraph.edges``) serving ``ranks`` (length n or n_pad) — the
     state of a JAX ``PageRankSession`` (``hg.n``, ``hg.edges``,
-    ``np.asarray(sess.R)``)."""
-    return PageRankSession.from_graph(
+    ``np.asarray(sess.R)``).  For a push session, ``residual`` (the JAX
+    session's ``np.asarray(sess._residual)``) is carried over exactly;
+    without it the residual is rebuilt from the ranks."""
+    sess = PageRankSession.from_graph(
         HostGraph(n, np.asarray(edges, np.int64)), config=config,
         r0=np.asarray(ranks), device=device)
+    if residual is not None:
+        if not sess._push:
+            raise ValueError("residual= is the state of a driver='push' "
+                             "session; the config's driver is "
+                             f"{sess.config.driver!r}")
+        r = torch.zeros(sess.n_pad, dtype=sess._dtype)
+        res = torch.from_numpy(np.array(residual)).to(sess._dtype)
+        r[:res.shape[0]] = res[:sess.n_pad]
+        sess._residual = r.to(sess.device)
+    return sess

@@ -1,8 +1,10 @@
 """Synthetic graph generators (ports ``src/repro/graphs/generators.py``).
 
-``rmat`` (power-law, web/social class), ``erdos_renyi`` (uniform) and
-``grid_road`` (2-D lattice with random shortcuts, road class), copied:
-numpy on the host, and the same edge sets as the JAX package's per seed.
+``rmat`` (power-law, web/social class), ``erdos_renyi`` (uniform),
+``grid_road`` (2-D lattice with random shortcuts, road class),
+``kmer_chains`` (long chains, protein k-mer class) and ``powerlaw`` (Zipf
+out-degrees), copied: numpy on the host, and the same edge sets as the JAX
+package's per seed.
 """
 from __future__ import annotations
 
@@ -94,3 +96,38 @@ def grid_road(side: int, *, diag_frac: float = 0.05, seed: int = 0
         d = rng.integers(0, n, k)
         e.append(np.stack([s, d], 1))
     return HostGraph(n, _dedupe(n, *np.concatenate(e).T))
+
+
+def kmer_chains(n: int, chain_len: int = 64, *, seed: int = 0) -> HostGraph:
+    """Disjoint long chains with sparse cross links (protein k-mer class)."""
+    rng = np.random.default_rng(seed)
+    v = np.arange(n - 1, dtype=np.int64)
+    mask = (v + 1) % chain_len != 0
+    fwd = np.stack([v[mask], v[mask] + 1], 1)
+    bwd = fwd[:, ::-1]
+    k = n // 50
+    cross = np.stack([rng.integers(0, n, k), rng.integers(0, n, k)], 1)
+    return HostGraph(n, _dedupe(n, *np.concatenate([fwd, bwd, cross]).T))
+
+
+def powerlaw(n: int, avg_degree: int = 8, *, seed: int = 0,
+             exponent: float = 2.1) -> HostGraph:
+    """Zipf out-degree digraph: vertex out-degrees follow a truncated
+    power law with the given ``exponent`` (2.1 ≈ web crawls), rescaled to
+    hit ``avg_degree`` on average; destinations are uniform."""
+    if n < 2:
+        raise ValueError(f"n={n} must be >= 2")
+    if avg_degree < 1:
+        raise ValueError(f"avg_degree={avg_degree} must be >= 1")
+    if exponent <= 1.0:
+        raise ValueError(f"exponent={exponent} must be > 1 (Zipf)")
+    rng = np.random.default_rng(seed)
+    deg = rng.zipf(exponent, size=n).astype(np.int64)
+    np.minimum(deg, n - 1, out=deg)     # cap: simple digraph, no self-loop
+    scale = avg_degree / max(deg.mean(), 1e-12)
+    deg = np.maximum((deg * scale).astype(np.int64), 1)
+    np.minimum(deg, n - 1, out=deg)
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    dst = rng.integers(0, n, size=src.size)
+    keep = src != dst
+    return HostGraph(n, _dedupe(n, src[keep], dst[keep]))

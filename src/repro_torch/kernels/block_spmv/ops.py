@@ -550,6 +550,26 @@ def block_spmv_active_bucketed(mat: BlockSparse, x: torch.Tensor,
                              n_active=n_active)
 
 
+def block_spmv_push_bucketed(mat: BlockSparse, x: torch.Tensor,
+                             src_cb: torch.Tensor, active_ids: torch.Tensor,
+                             n_active: torch.Tensor) -> torch.Tensor:
+    """Scatter-semiring push step on the pull tile layout.
+
+    Forward push moves each selected source's residual along its
+    *out*-edges: ``y[v] = Σ_{u→v, u ∈ S} x[u]``, which on the pull layout
+    (``A[v, u] = 1`` iff edge u→v) is ``A @ (x ⊙ 1_S)``: ``x`` masked to
+    the selected source column-blocks (``src_cb``, a [n_cb] indicator),
+    then :func:`block_spmv_active_bucketed` over the candidate destination
+    row-blocks (``active_ids`` compacted, −1-padded; ``n_active`` the
+    device count).  Same output contract: rows of blocks outside
+    ``active_ids`` are UNDEFINED — mask with the candidate indicator."""
+    src_rows = src_cb[:, None].expand(-1, mat.block).reshape(-1)
+    xm = torch.where(src_rows[:x.shape[0]], x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+    return block_spmv_active_bucketed(mat, xm, active_ids, n_active,
+                                      semiring="sum")
+
+
 def block_adjacency(mat: BlockSparse) -> torch.Tensor:
     """Boolean [n_rb, n_cb] tile-presence matrix: which row-blocks own a tile
     in each column-block (candidate-block selection for the OR-pass)."""

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (reading the packed nonzero index) against
 their plain PyTorch versions (reading the dense tiles), the index refresh on
-the card, and a stream on the card against the same stream on the CPU.
+the card, a stream on the card against the same stream on the CPU (pull and
+push drivers), and the push path's residual scatter, host syncs and masking
+of the kernel's undefined rows.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -224,3 +226,118 @@ def test_cuda_session_matches_cpu_session(cuda_device):
         assert float((gpu.R.cpu() - cpu.R).abs().max()) <= 1e-12
     assert bsk.block_spmv_cuda.launches > launches0[0]
     assert bsk.block_spmv_active_cuda.launches > launches0[1]
+
+
+def _push_session(device):
+    """A push session over ``grid_road(48)`` on ``device``."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.graphs.generators import grid_road
+    return PageRankSession.from_graph(
+        grid_road(48, seed=7),
+        config=EngineConfig(block_size=64, tau=1e-10, driver="push"),
+        device=device)
+
+
+@pytest.mark.cuda
+def test_cuda_push_session_matches_cpu_session(cuda_device):
+    """The same push stream on the card and on the CPU: equal counters,
+    ranks and residuals within 1e-12; the df sweeps launch kernel #2 and
+    the nd update's residual rebuild kernel #1."""
+    from repro_torch.core.delta import random_batch
+    gpu, cpu = _push_session(cuda_device), _push_session("cpu")
+    assert float((gpu.R.cpu() - cpu.R).abs().max()) <= 1e-12
+    for i, variant in enumerate(["df", "df", "nd"]):
+        dels, ins = random_batch(cpu.hg, 1e-3, seed=i, deletions_frac=0.2)
+        launches0 = (bsk.block_spmv_cuda.launches,
+                     bsk.block_spmv_active_cuda.launches)
+        a = gpu.update(dels, ins, variant=variant)
+        b = cpu.update(dels, ins, variant=variant)
+        for c in ("sweeps", "blocks_processed", "edges_processed",
+                  "converged"):
+            assert getattr(a.stats, c) == getattr(b.stats, c), c
+        assert a.pushed_blocks == b.pushed_blocks
+        assert float((gpu.R.cpu() - cpu.R).abs().max()) <= 1e-12
+        assert float((gpu._residual.cpu() - cpu._residual).abs().max()) \
+            <= 1e-12
+        assert bsk.block_spmv_active_cuda.launches > launches0[1]
+        if variant == "nd":
+            assert bsk.block_spmv_cuda.launches > launches0[0]
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_residual_duplicates_bit_identical(cuda_device):
+    from repro_torch.core import push_engine as pshe
+    rng = np.random.default_rng(12)
+    r = torch.from_numpy(rng.standard_normal(4096) * 1e-7).to(cuda_device)
+    idx = rng.integers(0, 64, 20000)            # ~300 occurrences per index
+    vals = rng.standard_normal(20000) * 1e-9
+    a = pshe.scatter_residual(r, idx, vals)
+    b = pshe.scatter_residual(r, idx, vals)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), pshe.scatter_residual(r.cpu(), idx, vals))
+
+
+@pytest.mark.cuda
+def test_cuda_push_drive_syncs_only_at_its_polls(cuda_device, monkeypatch):
+    """A push drive and a residual scatter on the card run under
+    ``torch.cuda.set_sync_debug_mode("error")``; only the driver's poll,
+    once per chunk of sweeps, reads back."""
+    from repro_torch.core import push_engine as pshe
+    from repro_torch.core.delta import random_batch
+    gpu = _push_session(cuda_device)
+    dels, ins = random_batch(gpu.hg, 1e-3, seed=3, deletions_frac=0.2)
+    gpu.update(dels, ins)
+    rng = np.random.default_rng(2)
+    idx = rng.integers(0, gpu.n, 3000)
+    vals = rng.standard_normal(3000) * 1e-6
+    polls = []
+    real = pshe._poll
+
+    def poll(sv):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            polls.append(1)
+            return real(sv)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(pshe, "_poll", poll)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu._residual = pshe.scatter_residual(gpu._residual, idx, vals)
+        _, stats, _, syncs = gpu._drive_push(gpu.R)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert stats.converged and stats.sweeps > 0
+    assert syncs == len(polls) == stats.sweeps // 8 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_push_rows_outside_candidates_never_reach_r(cuda_device,
+                                                          monkeypatch):
+    """A push drive whose active-kernel outputs all start as NaN equals the
+    clean drive bit for bit, from the same (p, r) state."""
+    from repro_torch.core import push_engine as pshe
+    gpu = _push_session(cuda_device)
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, gpu.n, 500)
+    P0 = gpu.R.clone()
+    R0 = pshe.scatter_residual(gpu._residual, idx, np.full(500, 1e-6))
+    gpu._residual = R0.clone()
+    clean_p, clean_stats, _, _ = gpu._drive_push(P0)
+    clean_r = gpu._residual
+
+    def poisoned(active_ids, tile_idx, tile_cols, tiles, x, *, index, **kw):
+        out = torch.full((tile_cols.shape[0] * kw["block"],), float("nan"),
+                         dtype=x.dtype, device=x.device)
+        return bsk.block_spmv_active_cuda(active_ids, tile_idx, tile_cols,
+                                          index, x, out=out, **kw)
+
+    monkeypatch.setattr(bsk, "tile_spmv_active", poisoned)
+    gpu._residual = R0.clone()
+    dirty_p, dirty_stats, _, _ = gpu._drive_push(P0)
+    assert clean_stats.sweeps > 0 and clean_stats == dirty_stats
+    assert torch.equal(clean_p, dirty_p)
+    assert torch.equal(clean_r, gpu._residual)

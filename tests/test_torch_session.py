@@ -163,7 +163,6 @@ def test_session_from_numpy_round_trips():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"driver": "push"}, "A 6"),
     ({"device_budget_bytes": 1 << 20}, "A 10"),
     ({"topology": "sharded"}, "A 14"),
     ({"walks_per_vertex": 4}, "A 13"),
