@@ -47,11 +47,22 @@ Phases, each of which raises (non-zero exit) on any failed check:
    for bit) and with every active-kernel output poisoned (bit for bit); the
    first push launch of kernel #2 of that drive held to its plain version
    and timed beside its bound and ``torch.sparse``; and the phase-5
-   profiles of one more push df update.
+   profiles of one more push df update;
+7. the paper's variant matrix on the same graph, after the push session is
+   closed, with the launch counters zeroed just before and read just
+   after: a fresh pull session takes two ``dt`` updates (per update the
+   vertices DT marked against DF's initial set for the same batch, the BFS
+   hops, host syncs, sweeps, edges), then ``recompute("df")`` and
+   ``recompute("dt")`` (the ``dt`` replay must equal the last update bit
+   for bit), all held to the oracle of the final graph; then snapshot
+   mode: ``df_pagerank`` on one more batch with the helping marking (a
+   third of the batch in the first pass) and fault-free — equal affected
+   sets, both held to the oracle — and a cold solve of the ``dense``
+   engine (BB) on the same snapshot, held to the same oracle.
 
-The kernel JSON line's ``launches`` add the pull path's (phase 3) and the
-push path's (phase 6).  Prints the kernel table as one JSON line, then as
-its last line
+The kernel JSON line's ``launches`` add the pull path's (phase 3), the
+push path's (phase 6) and the variant matrix's (phase 7).  Prints the
+kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -78,6 +89,7 @@ SIDE = 1024                      # grid_road(1024): n = 1,048,576
 BLOCK = 64
 TAU = 1e-10
 N_DF_UPDATES = 8
+N_DT_UPDATES = 2
 HOLD_CYCLES = 200_000_000        # ≥ 80 ms at the H100's ≤ 1.98 GHz clock
 
 
@@ -817,6 +829,239 @@ def _push_phase(bsk, ops, hg, cfg, batches, pull_df, nd_batch, ref,
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the variant matrix — dt and the replays, snapshot mode, dense
+# ---------------------------------------------------------------------------
+
+def _linf_ref(ranks, ref) -> float:
+    r = torch.as_tensor(ranks).cpu().numpy()
+    n = len(ref)
+    return float(np.abs(r[:n] - ref[:n]).max())
+
+
+def _dt_updates(hg, smi: str):
+    """A fresh pull session, ``N_DT_UPDATES`` dt updates, then the df and
+    dt replays of the last batch; every result held to the oracle of the
+    final graph.  Returns (final host graph, final ranks)."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core import frontier as fr
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.pagerank import numpy_reference
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU)
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"variants: pull open + cold solve {time.perf_counter() - t0:.2f}"
+          f" s [{smi}]", flush=True)
+    sess.warmup()
+    last = None
+    for i in range(N_DT_UPDATES):
+        dels, ins = random_batch(sess.hg, 1e-4, seed=300 + i,
+                                 deletions_frac=0.2)
+        # the counts below come from the update's own inputs, rebuilt here
+        # outside its wall time; the BFS is timed apart
+        g_prev = sess.hg.snapshot(block_size=BLOCK)
+        last = sess.update(dels, ins, variant="dt")
+        torch.cuda.synchronize()
+        hops, polls = sess._dt_bfs
+        g_cur = sess.hg.snapshot(block_size=BLOCK)
+        batch = fr.batch_to_device(g_cur, dels, ins)
+        df0 = fr.initial_affected(g_prev, g_cur, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dt0 = fr.dt_affected(g_prev, g_cur, batch)
+        torch.cuda.synchronize()
+        t_bfs = time.perf_counter() - t0
+        _check(bool((dt0 | ~df0).all()), "DT's set misses a DF vertex")
+        print(f"dt update {i}: {len(dels)} del + {len(ins)} ins, "
+              f"{last.wall_time_s * 1e3:.2f} ms (its two snapshots "
+              f"{sess._snap_s * 1e3:.2f} ms, the DT marking alone "
+              f"{t_bfs * 1e3:.2f} ms), DT marked "
+              f"{int(dt0.sum())} of {sess.n} vertices (DF's initial set "
+              f"{int(df0.sum())}), {hops} BFS hops in {polls} polls, host "
+              f"syncs {last.host_syncs}, sweeps {last.stats.sweeps}, blocks "
+              f"{last.stats.blocks_processed}, edges "
+              f"{last.stats.edges_processed}, converged {last.converged} "
+              f"[{smi}]", flush=True)
+        _check(last.converged, f"dt update {i} did not converge")
+    replays = {}
+    for variant in ("df", "dt"):
+        t0 = time.perf_counter()
+        replays[variant] = res = sess.recompute(variant)
+        torch.cuda.synchronize()
+        print(f"recompute({variant!r}): {(time.perf_counter() - t0) * 1e3:.2f}"
+              f" ms (two snapshots {sess._snap_s * 1e3:.2f} ms, solve "
+              f"{res.wall_time_s * 1e3:.2f} ms), sweeps "
+              f"{res.stats.sweeps}, blocks {res.stats.blocks_processed}, "
+              f"edges {res.stats.edges_processed}, converged "
+              f"{res.converged} [{smi}]", flush=True)
+        _check(res.converged, f"recompute({variant!r}) did not converge")
+    _check(bool(torch.equal(replays["dt"].ranks, last.ranks))
+           and replays["dt"].stats == last.stats,
+           "recompute('dt') differs from the dt update it replays")
+    t0 = time.perf_counter()
+    ref = numpy_reference(sess.hg.snapshot(block_size=BLOCK))
+    errs = {"dt update": _linf_ref(last.ranks, ref),
+            "recompute df": _linf_ref(replays["df"].ranks, ref),
+            "recompute dt": _linf_ref(replays["dt"].ranks, ref)}
+    print(f"variants oracle ({time.perf_counter() - t0:.1f} s): L_inf "
+          f"{errs}; the dt replay equals the update bit for bit", flush=True)
+    for what, err in errs.items():
+        _check(err <= 1e-9, f"{what}: L_inf vs numpy_reference {err} > 1e-9")
+    out = sess.hg, sess.ranks
+    sess.close()
+    return out
+
+
+def _snapshot_kernels(bsk, ops, mat, g, r_prev, affected) -> None:
+    """Both kernels on the snapshot's freshly built pull matrix, held to
+    their plain versions (f64 tolerance): #1 over every row-block, #2 (sum
+    and or) on the row-blocks of the DF initial frontier.  These launches
+    only compare, so the launch counts are put back afterwards."""
+    from repro_torch.core import frontier as fr
+    from repro_torch.core.graph import contributions, pad_ranks
+    counts = (bsk.block_spmv_cuda.launches,
+              bsk.block_spmv_active_cuda.launches)
+    B, tol = mat.block, TOLS["float64"]
+    x = ops._pad_x(mat, contributions(g, pad_ranks(g, r_prev))[:g.n_pad])
+    kw = dict(block=B, max_tiles=mat.max_tiles, semiring="sum")
+    y = bsk.block_spmv_cuda(mat.tile_idx, mat.tile_cols, mat.index, x, **kw)
+    yp = bsk.block_spmv_plain(mat.tile_idx, mat.tile_cols, mat.tiles, x,
+                              **kw)
+    errs = {"block_spmv": float((y - yp).abs().max())}
+    _check(bool(torch.allclose(y, yp, rtol=tol, atol=tol)),
+           f"block_spmv on the snapshot matrix: max abs err "
+           f"{errs['block_spmv']}")
+    act = torch.nonzero(fr.block_any(affected[:g.n_pad] & g.vertex_valid,
+                                     g.n_blocks, B))[:, 0]
+    k = int(act.numel())
+    ids_h = np.full(mat.n_rb, -1, np.int32)
+    ids_h[:k] = act.cpu().numpy()
+    ids = torch.as_tensor(ids_h, device="cuda")
+    n_act = torch.tensor([k], dtype=torch.int64, device="cuda")
+    rows = _active_rows(ids_h, mat.n_rb, B)
+    x_or = ops._pad_x(mat, affected[:g.n_pad].to(x.dtype))
+    for sr, xx in (("sum", x), ("or", x_or)):
+        kws = dict(kw, semiring=sr)
+        ya = bsk.block_spmv_active_cuda(ids, mat.tile_idx, mat.tile_cols,
+                                        mat.index, xx, n_active=n_act,
+                                        **kws)
+        yap = bsk.block_spmv_active_plain(ids, mat.tile_idx, mat.tile_cols,
+                                          mat.tiles, xx, **kws)
+        err = float((ya[rows] - yap[rows]).abs().max())
+        errs[f"block_spmv_active ({sr})"] = err
+        _check(bool(torch.allclose(ya[rows], yap[rows], rtol=tol, atol=tol)),
+               f"block_spmv_active ({sr}) on the snapshot matrix: max abs "
+               f"err {err}")
+    torch.cuda.synchronize()
+    bsk.block_spmv_cuda.launches, bsk.block_spmv_active_cuda.launches = counts
+    print(f"snapshot matrix: kernel #1 over all {mat.n_rb} row-blocks and #2 "
+          f"on the DF frontier's {k} row-blocks match their plain versions; "
+          f"max abs err {errs}", flush=True)
+
+
+def _snapshot_and_dense(bsk, hg, r_prev, smi: str) -> None:
+    """Snapshot mode on one more batch: the pull matrix built alone and both
+    kernels held to their plain versions on it; a fault-free
+    ``df_pagerank`` on that matrix (its drive alone), then one with the
+    helping marking (a third of the batch in the first pass) that builds
+    its own; then the dense engine's cold BB solve of the same snapshot;
+    all held to its oracle."""
+    from repro_torch.core import frontier as fr
+    from repro_torch.core import pagerank as pr
+    from repro_torch.core import pallas_engine as pe
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.graph import pull_all
+    from repro_torch.kernels.block_spmv import ops
+    dels, ins = random_batch(hg, 1e-4, seed=400, deletions_frac=0.2)
+    t0 = time.perf_counter()
+    g_prev = hg.snapshot(block_size=BLOCK)
+    g = hg.apply_batch(dels, ins).snapshot(block_size=BLOCK)
+    batch = fr.batch_to_device(g, dels, ins)
+    print(f"snapshot mode: two snapshots in {time.perf_counter() - t0:.2f} s"
+          f" [{smi}]", flush=True)
+    first = np.zeros(batch.shape[0], bool)
+    first[::3] = True
+    full = fr.initial_affected(g_prev, g, batch)
+    helped, checked, rounds = fr.initial_affected_with_helping(
+        g_prev, g, batch, first)
+    _check(bool(torch.equal(full, helped)) and bool(checked.all())
+           and rounds >= 1, "the helping marking differs from the "
+           "fault-free one")
+    t0 = time.perf_counter()
+    mat = pe.build_pull_matrix(g)
+    torch.cuda.synchronize()
+    print(f"build_pull_matrix alone: {time.perf_counter() - t0:.2f} s, "
+          f"{mat.n_tiles()} live tiles ({mat.tiles.nbytes / 1e9:.2f} GB) "
+          f"[{smi}]", flush=True)
+    _snapshot_kernels(bsk, ops, mat, g, r_prev, full)
+
+    def df_call(what: str, note: str, **kw):
+        t0 = time.perf_counter()
+        r = pr.df_pagerank(g_prev, g, batch, r_prev, tau=TAU, **kw)
+        torch.cuda.synchronize()
+        print(f"df_pagerank ({what}): {time.perf_counter() - t0:.2f} s "
+              f"(engine run {r.wall_time_s * 1e3:.2f} ms, {note}), sweeps "
+              f"{r.stats.sweeps}, blocks {r.stats.blocks_processed}, edges "
+              f"{r.stats.edges_processed}, converged {r.converged} [{smi}]",
+              flush=True)
+        return r
+
+    res = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        # the fault-free call drives on the matrix built above; the helping
+        # call builds its own, as a caller without ``pallas_mat`` does
+        res["fault-free"] = df_call("fault-free", "the matrix given",
+                                    pallas_mat=mat)
+        del mat
+        torch.cuda.empty_cache()
+        res["helping"] = df_call("helping", "its pull-matrix build included",
+                                 helping_first_pass=first)
+        t0 = time.perf_counter()
+        dense = pr.static_pagerank(g, mode="bb", engine="dense", tau=TAU)
+        torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    R = dense.ranks
+    _check(bool(torch.equal(pull_all(g, R, alpha=0.85),
+                            pull_all(g, R, alpha=0.85))),
+           "two pull_all calls differ")
+    t0 = time.perf_counter()
+    ref = pr.numpy_reference(g)
+    errs = {k: _linf_ref(v.ranks, ref) for k, v in res.items()}
+    errs["dense"] = _linf_ref(R, ref)
+    mutual = float((res["helping"].ranks - res["fault-free"].ranks).abs()
+                   .max())
+    print(f"dense cold solve (BB): {t_dense:.2f} s, {dense.stats.iterations}"
+          f" iterations, converged {dense.converged} [{smi}]", flush=True)
+    print(f"snapshot oracle ({time.perf_counter() - t0:.1f} s): L_inf {errs};"
+          f" helping vs fault-free L_inf {mutual:.3e}, {rounds} helping "
+          f"round(s), equal affected sets ({int(full.sum())} vertices)",
+          flush=True)
+    _check(all(r.converged for r in res.values()) and dense.converged,
+           "a snapshot-mode solve did not converge")
+    for what, err in errs.items():
+        _check(err <= 1e-9, f"{what}: L_inf vs numpy_reference {err} > 1e-9")
+
+
+def _variants_phase(bsk, hg, smi: str) -> dict:
+    """Phase 7; returns its launch counts."""
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    t0 = time.perf_counter()
+    hg1, r1 = _dt_updates(hg, smi)
+    torch.cuda.empty_cache()
+    _snapshot_and_dense(bsk, hg1, r1, smi)
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches}
+    print(f"launches on the variant path: {launches}; phase 7 took "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    _check(launches["block_spmv"] > 0 and launches["block_spmv_active"] > 0,
+           f"the variant path missed a kernel: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -966,8 +1211,13 @@ def main() -> None:
         bsk, ops, hg, EngineConfig(block_size=BLOCK, dtype=torch.float64,
                                    tau=TAU, driver="push"),
         batches, df, nd_batch, ref, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 7: the variant matrix, same graph ----------------------------
+    var_launches = _variants_phase(bsk, hg, smi)
     for row in table:
-        row["launches"] = launches[row["name"]] + push_launches[row["name"]]
+        row["launches"] = (launches[row["name"]] + push_launches[row["name"]]
+                           + var_launches[row["name"]])
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in table]}))

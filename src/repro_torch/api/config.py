@@ -2,14 +2,20 @@
 ``src/repro/api/config.py``).
 
 Same fields and the same construction-time validation as the JAX config.
-Values that belong to later slices of the port raise ``NotImplementedError``
-at construction, naming the ROADMAP item (queue A) that brings them; a
-config that constructs is one the stream session of this slice runs.
+``engine`` resolves through :mod:`repro_torch.api.registry` (``None`` →
+``"pallas"``, or a ``REPRO_ENGINE`` override, validated eagerly).  Values
+that belong to later slices of the port raise ``NotImplementedError`` at
+construction, naming the ROADMAP item (queue A) that brings them; a config
+that constructs is one the port runs.  The ``driver="push"`` rules are
+checked before those refusals, so a push config the reference refuses for
+good gets the reference's ``ValueError``.
 
 Two fields mean less here than in the reference:
 
-* ``engine`` resolves to ``"pallas"`` — the fused frontier engine, whose
-  tile SpMV is the hand-written CUDA kernel on the card;
+* ``engine`` is ``"pallas"`` (the fused frontier engine, whose tile SpMV is
+  the hand-written CUDA kernel on the card) or ``"dense"`` (the oracle, BB
+  mode only until the blocked engine, ROADMAP item A 7, brings its LF
+  mode);
 * ``backend`` accepts only ``None``: the tensors' device picks the kernel
   (CUDA) or its plain version (CPU), and no setting can put the plain
   version on the card.
@@ -21,6 +27,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.api import registry
 from repro_torch.device import as_torch_dtype
 
 MODES = ("lf", "bb")
@@ -30,12 +37,11 @@ TOPOLOGIES = ("single", "sharded")
 EXCHANGES = ("full", "bf16", "delta")
 DURABILITIES = ("none", "wal")
 PARTITIONERS = ("contiguous", "hash", "bfs_blocks")
-ENGINES = ("pallas",)
-
 # ROADMAP queue-A items that bring the values this slice rejects
 _LATER = {
-    "engine:dense": "A 3 (dense oracle engine)",
     "engine:blocked": "A 7 (blocked Gauss–Seidel engine)",
+    "engine:dense:lf": "A 7 (blocked Gauss–Seidel engine, which the dense "
+                       "engine's LF mode runs)",
     "engine:walk": "A 13 (walk engine / PPR)",
     "engine:distributed": "A 14 (sharded topology)",
     "topology:sharded": "A 14 (sharded topology)",
@@ -50,8 +56,8 @@ _LATER = {
 def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
-        "the port runs the untiered single-device stream (pull or push "
-        "driver)")
+        "the port runs the untiered single-device session (pallas engine, "
+        "pull or push driver; dense engine in BB mode)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,18 +121,44 @@ class EngineConfig:
                 "switch — a CUDA tensor always runs the hand-written kernel "
                 "and a CPU tensor (device='cpu', asked for explicitly) its "
                 "plain version; leave backend=None")
-        if self.driver == "push" and self.engine not in (None,) + ENGINES:
+        if self.driver not in DRIVERS:
             raise ValueError(
-                "driver='push' is the residual forward-push mode of the "
-                "streaming pallas engine; engine resolves to "
-                f"{self.engine!r} — pass engine='pallas' (or leave the "
-                "default) to select it")
-        if self.engine not in (None,) + ENGINES:
-            key = f"engine:{self.engine}"
-            if key in _LATER:
-                raise _later(f"engine={self.engine!r}", key)
-            raise ValueError(f"unknown engine {self.engine!r}; this port "
-                             f"has {list(ENGINES)}")
+                f"driver={self.driver!r} invalid; expected one of {DRIVERS}")
+        later_engine = (self.engine is not None
+                        and f"engine:{self.engine}" in _LATER)
+        eng_name = (self.engine if later_engine
+                    else registry.resolve(self.engine).name)
+        # -- driver axis: the push rules come before every later-slice
+        # refusal below, so what the reference refuses for good raises its
+        # ValueError here too
+        if self.driver == "push":
+            if eng_name != "pallas":
+                raise ValueError(
+                    "driver='push' is the residual forward-push mode of the "
+                    f"streaming pallas engine; engine resolves to "
+                    f"{eng_name!r} — pass engine='pallas' (or leave the "
+                    "default) to select it")
+            if self.mode != "lf":
+                raise ValueError(
+                    "driver='push' has no blocked-barrier analogue; "
+                    f"mode must be 'lf' (got {self.mode!r})")
+            if self.faults is not None:
+                raise ValueError(
+                    "driver='push' does not host thread fault tables; "
+                    "run fault experiments on driver='pull'")
+            if self.fault_domain is not None:
+                raise ValueError(
+                    "driver='push' does not host fault domains on the drive "
+                    "path (durability='wal' still composes); use "
+                    "driver='pull' for fault-domain experiments")
+            if self.integrity is not None:
+                raise ValueError(
+                    "integrity invariants instrument the pull iterate; "
+                    "driver='push' does not support integrity=")
+        if later_engine:
+            raise _later(f"engine={self.engine!r}", f"engine:{self.engine}")
+        if eng_name == "dense" and self.mode != "bb":
+            raise _later("engine='dense' with mode='lf'", "engine:dense:lf")
         # -- topology axis ----------------------------------------------------
         if self.topology not in TOPOLOGIES:
             raise ValueError(f"topology={self.topology!r} invalid; "
@@ -180,24 +212,12 @@ class EngineConfig:
                     f"device_budget_bytes={v!r} must be a positive integer "
                     "(or None for untiered storage)")
             raise _later("device_budget_bytes=", "device_budget_bytes")
-        # -- driver axis ------------------------------------------------------
-        if self.driver not in DRIVERS:
-            raise ValueError(
-                f"driver={self.driver!r} invalid; expected one of {DRIVERS}")
-        if self.driver == "push":
-            if self.mode != "lf":
-                raise ValueError(
-                    "driver='push' has no blocked-barrier analogue; "
-                    f"mode must be 'lf' (got {self.mode!r})")
-            if self.faults is not None:
-                raise ValueError(
-                    "driver='push' does not host thread fault tables; "
-                    "run fault experiments on driver='pull'")
 
     # -- resolution helpers --------------------------------------------------
     @property
     def resolved_engine(self) -> str:
-        return "pallas"
+        """Engine name after default/env resolution (registry-validated)."""
+        return registry.resolve(self.engine).name
 
     def resolved_tau_f(self, *, expand: bool) -> float:
         if not expand:

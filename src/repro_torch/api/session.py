@@ -1,11 +1,13 @@
-"""`PageRankSession` — the stream-mode session of the port.
+"""`PageRankSession` — one stateful handle for streams and snapshots.
 
-Ports the untiered, single-device stream mode of
-``src/repro/api/session.py`` with both drivers: ``_seed_affected``,
-``_apply_operand_delta``, ``from_graph``, ``_init_stream``, ``_drive``,
-``_drive_push``, ``_residual_recompute``, ``_seed_push``,
-``_update_stream``, ``update``, ``recompute`` (``static``/``nd``),
-``query``, ``top_k``, ``ranks``, ``warmup``, ``close`` and ``report``::
+Ports the untiered, single-device stream and snapshot modes of
+``src/repro/api/session.py``: ``_seed_affected``, ``_apply_operand_delta``,
+``from_graph``, ``from_snapshot``, ``_init_stream``, ``_init_snapshot``,
+``_converge``, ``_drive``, ``_drive_push``, ``_residual_recompute``,
+``_seed_push``, ``_update_stream``, ``_update_snapshot``, ``update`` (all
+four variants), ``recompute`` (``static``/``nd``, and the ``df``/``dt``
+replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
+``close`` and ``report``::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -19,12 +21,23 @@ Ports the untiered, single-device stream mode of
         hg, config=EngineConfig(tau=1e-10, driver="push"))
     push.update(dels, ins)          # residual seed + forward push
 
-The graph is snapshotted once; the capacity-padded pull matrix and the
-per-vertex / per-block engine operands live on the device and are patched
-in O(batch) per update; every update re-enters the fused pull driver of
-:mod:`repro_torch.core.pallas_engine` or, with ``driver="push"``, the push
-driver of :mod:`repro_torch.core.push_engine`, whose session keeps a
-residual beside the ranks and seeds it per batch on the host.
+Two modes, picked at construction:
+
+* **stream mode** (``from_graph`` + the pallas engine): the graph is
+  snapshotted once; the capacity-padded pull matrix and the per-vertex /
+  per-block engine operands live on the device and are patched in
+  O(batch) per update; every update re-enters the fused pull driver of
+  :mod:`repro_torch.core.pallas_engine` or, with ``driver="push"``, the
+  push driver of :mod:`repro_torch.core.push_engine`, whose session keeps
+  a residual beside the ranks and seeds it per batch on the host.  The
+  ``dt`` marking (pull only) walks two throwaway snapshots per update, as
+  the reference's does.
+* **snapshot mode** (``from_snapshot``, or the ``dense`` engine): the
+  session holds a :class:`~repro_torch.core.graph.GraphSnapshot` on its
+  device, rebuilds it per update (O(m) host work) and converges through
+  the engine adapter of :mod:`repro_torch.api.registry`.  The legacy
+  ``static/nd/dt/df_pagerank`` functions of
+  :mod:`repro_torch.core.pagerank` are shims over exactly this path.
 
 One ordering differs from the reference, because the port patches the tile
 pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
@@ -42,6 +55,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.api import registry
 from repro_torch.api.config import EngineConfig
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
@@ -49,7 +63,8 @@ from repro_torch.core import pallas_engine as pe
 from repro_torch.core import push_engine as pshe
 from repro_torch.core.blocked import SweepStats
 from repro_torch.core.delta import signed_edge_delta, validate_edge_batch
-from repro_torch.core.graph import HostGraph, initial_ranks
+from repro_torch.core.graph import (GraphSnapshot, HostGraph,
+                                    initial_ranks, pad_ranks)
 from repro_torch.core.incremental import (IncrementalPullMatrix,
                                           effective_batch)
 from repro_torch.core.pagerank import PagerankResult
@@ -138,7 +153,7 @@ class StreamBatchResult:
     wall_time_s: float            # full step: delta + seed + converge
     batch_edges: int              # raw batch size (before no-op filtering)
     driver_retraces: int = 0      # kernel builds during this step
-    host_syncs: int = 0           # device-to-host reads of the step
+    host_syncs: int = 0           # device-to-host reads (stream mode)
     # -- push-driver accounting (None on the pull driver) --------------------
     residual_mass: Optional[float] = None     # ‖r‖₁ at drive exit
     pushed_blocks: Optional[int] = None       # source blocks pushed
@@ -178,44 +193,81 @@ class SessionReport:
 
 
 class PageRankSession:
-    """Stateful PageRank handle owning the host graph, the device tile pool
-    and operand mirrors, and the ranks.  Construct via :meth:`from_graph`."""
+    """Stateful PageRank handle owning the graph state, the resolved engine
+    and the ranks.  Construct via :meth:`from_graph` (streams and serving)
+    or :meth:`from_snapshot` (solves over an existing snapshot)."""
 
-    def __init__(self, *, hg: HostGraph, config: Optional[EngineConfig] = None,
-                 r0=None, device="cuda"):
+    def __init__(self, *, hg: Optional[HostGraph] = None,
+                 g: Optional[GraphSnapshot] = None,
+                 config: Optional[EngineConfig] = None, r0=None,
+                 device="cuda"):
         if config is None:
             config = EngineConfig()
         if not isinstance(config, EngineConfig):
             raise TypeError(
                 f"config must be an EngineConfig, got {type(config).__name__}"
                 " — build one with repro_torch.api.config.EngineConfig(...)")
-        if hg is None:
-            raise ValueError("need a HostGraph (from_graph)")
+        if hg is None and g is None:
+            raise ValueError("need a HostGraph (from_graph) or a "
+                             "GraphSnapshot (from_snapshot)")
         self.config = config
-        self.device = resolve_device(device)
-        self.engine_name = config.resolved_engine
+        # a snapshot-mode session runs on its snapshot's device
+        self.device = resolve_device(device if g is None else g.device)
+        self.engine = registry.resolve(config.engine)
+        self.engine_name = self.engine.name
         self.hg = hg
+        self.g: Optional[GraphSnapshot] = None
         self._dtype = config.resolved_dtype()
         self._fault_plan = config.faults
+        self._stream = (self.engine_name == "pallas" and hg is not None
+                        and g is None)
+        # residual forward-push driver: a device-resident residual next to
+        # the ranks, seeded in O(batch) per update
+        self._push = config.driver == "push"
+        if self._push and not self._stream:
+            raise ValueError(
+                "driver='push' runs the residual forward-push stream — "
+                "open the session with from_graph and the pallas engine "
+                "(from_snapshot has no operand mirrors to seed)")
         self._closed = False
         self._history: List[StreamBatchResult] = []
         self._warm_idx: Optional[int] = None
         self._queries = 0
-        # residual forward-push driver: a device-resident residual next to
-        # the ranks, seeded in O(batch) per update
-        self._push = config.driver == "push"
         self._residual: Optional[torch.Tensor] = None
+        # replay state for recompute("dt"/"df"): the last applied batch,
+        # the pre-batch host graph / snapshot, and the pre-batch ranks
+        self._last_batch: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._hg_prev: Optional[HostGraph] = None
-        self._init_stream(r0)
+        self._g_prev: Optional[GraphSnapshot] = None
+        self._r_prev: Optional[torch.Tensor] = None
+        # the last stream dt marking's BFS: (hops, host reads)
+        self._dt_bfs: Optional[Tuple[int, int]] = None
+        # seconds the last dt update or df/dt replay spent building its
+        # two snapshots (host build and copy to the device)
+        self._snap_s = 0.0
+        if self._stream:
+            self._init_stream(r0)
+        else:
+            self._init_snapshot(g, r0)
 
     @classmethod
     def from_graph(cls, hg: HostGraph, *,
                    config: Optional[EngineConfig] = None, r0=None,
                    device="cuda") -> "PageRankSession":
-        """Open a stream session over a host graph on ``device``.
+        """Open a session over a host graph on ``device``.  With the pallas
+        engine this is stream mode; other engines run snapshot mode.
         ``r0=None`` runs one initial solve (``variant="static"``
         semantics) so the session is born serving."""
         return cls(hg=hg, config=config, r0=r0, device=device)
+
+    @classmethod
+    def from_snapshot(cls, g: GraphSnapshot, *,
+                      config: Optional[EngineConfig] = None, r0=None,
+                      hg: Optional[HostGraph] = None) -> "PageRankSession":
+        """Wrap an existing snapshot (snapshot mode, on the snapshot's
+        device; the block grid comes from the snapshot, not
+        ``config.block_size``).  Pass ``hg`` as well to enable ``update``."""
+        return cls(hg=hg, g=g, config=config, r0=r0)
 
     def _init_stream(self, r0) -> None:
         cfg = self.config
@@ -267,6 +319,46 @@ class PageRankSession:
             # caller-provided ranks: rebuild the exact residual invariant
             # before the first update seeds against it
             self._residual = self._residual_recompute(self.R)
+
+    def _init_snapshot(self, g: Optional[GraphSnapshot], r0) -> None:
+        cfg = self.config
+        if g is None:
+            g = self.hg.snapshot(block_size=cfg.block_size,
+                                 device=self.device)
+        self.g = g
+        self.n, self.n_pad = g.n, g.n_pad
+        self.block_size, self.n_rb = g.block_size, g.n_blocks
+        self.valid = g.vertex_valid
+        self.inc = None
+        if r0 is None:
+            self._converge(initial_ranks(g, self._dtype), g.vertex_valid,
+                           expand=False)
+        else:
+            # keep the caller's dtype: the engines compute in R0's dtype
+            self.R = pad_ranks(g, r0)
+
+    # -- the snapshot-level solve --------------------------------------------
+    def _converge(self, R0, affected0, *, expand: bool,
+                  mode: Optional[str] = None, mat=None, aux=None,
+                  g: Optional[GraphSnapshot] = None) -> PagerankResult:
+        """Converge one (R0, affected0) problem through the resolved engine
+        adapter and adopt the result as the session's ranks.  This is the
+        exact path the deprecated ``*_pagerank`` functions shim onto."""
+        cfg = self.config
+        g = g if g is not None else self.g
+        if g is None:
+            raise ValueError("snapshot-level solve needs a GraphSnapshot "
+                             "(stream-mode sessions use update/recompute)")
+        t0 = time.perf_counter()
+        R, stats = self.engine.run(
+            g, R0, affected0, mode=mode or cfg.mode, expand=expand,
+            alpha=cfg.alpha, tau=cfg.tau, tau_f=cfg.tau_f,
+            max_iterations=cfg.max_iterations, faults=self._fault_plan,
+            tile=cfg.tile, active_policy=cfg.active_policy,
+            mat=mat, aux=aux, backend=cfg.backend)
+        self.R = R
+        return PagerankResult(ranks=R, stats=stats,
+                              wall_time_s=time.perf_counter() - t0)
 
     # -- the fused solve -----------------------------------------------------
     def _drive(self, R0, affected, *, expand: bool, full: bool = False
@@ -348,42 +440,50 @@ class PageRankSession:
         of ``variant`` on the session's driver, then its drive.  Returns
         (ranks, stats, push extras or None, host syncs made).  ``df`` takes
         the seeded ``affected`` mask (pull) or the batch's effective
-        ``sources`` and their pre-batch degrees (push); ``nd`` starts warm
-        and ``static`` cold, with every vertex affected."""
+        ``sources`` and their pre-batch degrees (push); ``dt`` takes the
+        reachability mask ``affected`` and starts warm without expansion;
+        ``nd`` starts warm and ``static`` cold, with every vertex
+        affected."""
         if self._push:
             P0, seed_syncs = self._seed_push(variant, sources, deg_old_src)
             R, stats, extras, syncs = self._drive_push(P0)
             return R, stats, extras, syncs + seed_syncs
-        if variant == "df":
-            R0, expand = self.R, True
+        policy_affected = self.config.active_policy == "affected"
+        checks = 0
+        if variant in ("df", "dt"):
+            R0, expand, full = self.R, variant == "df", False
+            if variant == "dt" and policy_affected:
+                # DT marks whatever the batch reaches — on a connected graph
+                # every row-block, and then kernel #1 pulls (one read, as
+                # run_pallas checks the same before its drive)
+                full = bool(fr.block_any(affected & self.valid, self.n_rb,
+                                         self.block_size).all())
+                checks = 1
         else:
             affected, expand = self.valid, False
             R0 = self.R if variant == "nd" else self._on_valid(1.0 / self.n)
-        # nd/static mark every vertex and never expand: all blocks active
-        full = not expand and self.config.active_policy == "affected"
+            # nd/static mark every vertex and never expand: all blocks active
+            full = policy_affected
         R, stats, syncs = self._drive(R0, affected, expand=expand, full=full)
-        return R, stats, None, syncs
+        return R, stats, None, syncs + checks
 
     def _update_stream(self, deletions, insertions, variant: str = "df"
                        ) -> StreamBatchResult:
         """Stream step: operand-mirror patch → DF seed over G^{t-1} → tile
         scatter → DF seed over G^t → fused convergence loop.  On a push
-        session the residual seed replaces both DF seed passes."""
+        session the residual seed replaces both DF seed passes; ``dt``
+        marks by a BFS over snapshots of G^{t-1} and G^t instead."""
         if variant == "dt" and self._push:
             raise ValueError(
                 "driver='push' does not implement the dt reachability "
                 "marking (it walks throwaway snapshots of the pull "
                 "iterate); use variant='df' or 'nd', or a driver='pull' "
                 "session")
-        if variant == "dt":
-            raise NotImplementedError(
-                "variant='dt' is not ported yet: its reachability marking "
-                "(frontier.dt_affected) walks snapshots of both graphs and "
-                "comes with ROADMAP item A 4's remaining frontier helpers; "
-                "use 'df', 'nd' or 'static'")
         t0 = time.perf_counter()
         builds0 = bsk.builds()
         dev, B = self.device, self.block_size
+        self._snap_s = 0.0
+        g_prev_snap = self._snapshot(self.hg) if variant == "dt" else None
         dels_eff, ins_eff = effective_batch(self.hg, deletions, insertions)
         rows, cols, vals = signed_edge_delta(dels_eff, ins_eff)
         affected = sources = deg_old_src = None
@@ -411,41 +511,104 @@ class PageRankSession:
             h_prev = _seed_pass(self.inc.mat, seed)     # G^{t-1}
         self.inc.advance(self.hg, None, deletions, insertions,
                          effective=(dels_eff, ins_eff))
-        if self._push:
-            self._hg_prev = self.hg         # the seed walks both key sets
+        # the push seed walks both key sets; the df/dt replay needs both
+        self._hg_prev, self._r_prev = self.hg, self.R
+        self._last_batch = (np.asarray(deletions, np.int64).reshape(-1, 2),
+                            np.asarray(insertions, np.int64).reshape(-1, 2))
         self.hg = self.hg.apply_batch(deletions, insertions)
         raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
                + np.asarray(insertions).reshape(-1, 2).shape[0])
 
+        dt_syncs = 0
         if variant == "df" and not self._push:
             hit = h_prev | _seed_pass(self.inc.mat, seed)       # ∪ G^t
             affected = _seed_mask(hit, seed, self.valid, block_size=B)
+        elif variant == "dt":
+            g_new_snap = self._snapshot(self.hg)
+            affected, hops, dt_syncs = fr._dt_reach(
+                g_prev_snap, g_new_snap,
+                fr.batch_to_device(g_new_snap, deletions, insertions))
+            self._dt_bfs = (hops, dt_syncs)
         R, stats, extras, syncs = self._solve(variant, affected, sources,
                                               deg_old_src)
         self.R = R
         return StreamBatchResult(
             ranks=R, stats=stats, wall_time_s=time.perf_counter() - t0,
             batch_edges=raw, driver_retraces=bsk.builds() - builds0,
-            host_syncs=syncs,
+            host_syncs=syncs + dt_syncs,
             residual_mass=None if extras is None else extras["residual_l1"],
             pushed_blocks=None if extras is None else extras["pushed_blocks"])
+
+    def _snapshot(self, hg: HostGraph) -> GraphSnapshot:
+        """Snapshot of ``hg`` on the session's device; its seconds add to
+        ``_snap_s``."""
+        t0 = time.perf_counter()
+        g = hg.snapshot(block_size=self.block_size, device=self.device)
+        self._snap_s += time.perf_counter() - t0
+        return g
+
+    def _update_snapshot(self, deletions, insertions, variant: str
+                         ) -> StreamBatchResult:
+        """Snapshot-mode step: rebuild the snapshot (O(m) host work — the
+        legacy path, kept for the oracle engines) and converge through the
+        engine adapter."""
+        t0 = time.perf_counter()
+        builds0 = bsk.builds()
+        g_prev = self.g
+        hg_new = self.hg.apply_batch(deletions, insertions)
+        g_new = hg_new.snapshot(block_size=self.block_size,
+                                device=self.device)
+        batch_dev = fr.batch_to_device(g_new, deletions, insertions)
+        if variant == "df":
+            affected = fr.initial_affected(g_prev, g_new, batch_dev)
+            R0, expand = pad_ranks(g_new, self.R), True
+        elif variant == "dt":
+            affected = fr.dt_affected(g_prev, g_new, batch_dev)
+            R0, expand = pad_ranks(g_new, self.R), False
+        elif variant == "nd":
+            affected, expand = g_new.vertex_valid, False
+            R0 = pad_ranks(g_new, self.R)
+        else:   # static
+            affected, expand = g_new.vertex_valid, False
+            R0 = initial_ranks(g_new, self._dtype)
+        self._hg_prev, self._g_prev = self.hg, g_prev
+        self._last_batch = (np.asarray(deletions, np.int64).reshape(-1, 2),
+                            np.asarray(insertions, np.int64).reshape(-1, 2))
+        self._r_prev = self.R
+        self.hg, self.g = hg_new, g_new
+        self.n, self.n_pad = g_new.n, g_new.n_pad
+        self.valid = g_new.vertex_valid
+        res = self._converge(R0, affected, expand=expand, g=g_new)
+        raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
+               + np.asarray(insertions).reshape(-1, 2).shape[0])
+        return StreamBatchResult(
+            ranks=res.ranks, stats=res.stats,
+            wall_time_s=time.perf_counter() - t0, batch_edges=raw,
+            driver_retraces=bsk.builds() - builds0)
 
     # -- updates -------------------------------------------------------------
     def update(self, deletions, insertions, *, variant: str = "df"
                ) -> StreamBatchResult:
         """Apply one edge batch and reconverge.  ``variant``: ``"df"``
         (Dynamic Frontier, the paper's algorithm; on a push session the
-        O(batch) residual seed), ``"nd"`` (warm start, all affected) or
-        ``"static"`` (cold start, all affected); ``"dt"`` raises
-        ``NotImplementedError`` on a pull session (not ported yet) and
-        ``ValueError`` on a push session (no push analogue)."""
+        O(batch) residual seed), ``"dt"`` (reachability marking; a push
+        session raises ``ValueError``), ``"nd"`` (warm start, all affected)
+        or ``"static"`` (cold start, all affected)."""
         self._ensure_open()
         if variant not in VARIANTS:
             raise ValueError(f"variant={variant!r} invalid; "
                              f"expected one of {VARIANTS}")
+        if self.hg is None:
+            raise ValueError(
+                "this session wraps a bare snapshot (from_snapshot without "
+                "hg=); build it with PageRankSession.from_graph to stream "
+                "updates")
         deletions, insertions = validate_edge_batch(deletions, insertions,
                                                     self.n)
-        res = self._update_stream(deletions, insertions, variant)
+        if self._stream:
+            res = self._update_stream(deletions, insertions, variant)
+        else:
+            res = self._update_snapshot(deletions, insertions, variant)
         self._history.append(res)
         if not res.stats.converged:
             warnings.warn(
@@ -457,11 +620,14 @@ class PageRankSession:
 
     # -- recompute -----------------------------------------------------------
     def recompute(self, variant: str = "static") -> PagerankResult:
-        """Re-solve the session's **current** graph: ``"static"`` from a
-        cold start, ``"nd"`` warm from the session's ranks (every vertex
-        affected; a push session rebuilds its residual exactly).  The
-        reference's ``"df"``/``"dt"`` replay of the last batch is not
-        ported on a pull session and has no push analogue."""
+        """Re-solve the session's **current** graph.
+
+        ``"static"`` starts from uniform ranks, ``"nd"`` warm from the
+        session's ranks (both with every vertex affected; a push session
+        rebuilds its residual exactly).  ``"dt"`` / ``"df"`` *replay the
+        last update batch* with that variant's marking from the pre-batch
+        ranks — the what-if tool for comparing variants on one step; they
+        need a prior ``update`` and have no push analogue."""
         self._ensure_open()
         if variant not in VARIANTS:
             raise ValueError(f"variant={variant!r} invalid; "
@@ -471,17 +637,38 @@ class PageRankSession:
                 f"recompute({variant!r}) replays the pull driver's "
                 "frontier marking; a driver='push' session re-solves via "
                 "variant='static' or 'nd'")
-        if variant in ("df", "dt"):
-            raise NotImplementedError(
-                f"recompute({variant!r}) replays the last batch with the "
-                "pull frontier marking (frontier.initial_affected / "
-                "dt_affected), which comes with ROADMAP item A 4's "
-                "remaining frontier helpers; use 'static' or 'nd'")
-        t0 = time.perf_counter()
-        R, stats, _, _ = self._solve(variant)
-        self.R = R
-        return PagerankResult(ranks=R, stats=stats,
-                              wall_time_s=time.perf_counter() - t0)
+        if variant in ("static", "nd"):
+            if self._stream:
+                t0 = time.perf_counter()
+                R, stats, _, _ = self._solve(variant)
+                self.R = R
+                return PagerankResult(ranks=R, stats=stats,
+                                      wall_time_s=time.perf_counter() - t0)
+            R0 = self.R if variant == "nd" else self._on_valid(1.0 / self.n)
+            return self._converge(R0, self.valid, expand=False)
+
+        # dt / df: replay the last batch's marking from the pre-batch state
+        if self._last_batch is None:
+            raise ValueError(
+                f"recompute({variant!r}) replays the last update batch, but "
+                "no batch has been applied yet — call update() first or use "
+                "variant='static'/'nd'")
+        self._snap_s = 0.0
+        g_prev = (self._g_prev if self._g_prev is not None
+                  else self._snapshot(self._hg_prev))
+        g_cur = self.g if self.g is not None else self._snapshot(self.hg)
+        batch_dev = fr.batch_to_device(g_cur, *self._last_batch)
+        if variant == "df":
+            affected = fr.initial_affected(g_prev, g_cur, batch_dev)
+        else:
+            affected = fr.dt_affected(g_prev, g_cur, batch_dev)
+        R0 = pad_ranks(g_cur, self._r_prev)
+        mat = aux = None
+        if self._stream:
+            # reuse the incrementally maintained operands
+            mat, aux = self.inc.mat, self.inc.aux
+        return self._converge(R0, affected, expand=(variant == "df"),
+                              g=g_cur, mat=mat, aux=aux)
 
     # -- serving reads -------------------------------------------------------
     def _vertex_ids(self, vertices) -> np.ndarray:
@@ -548,9 +735,9 @@ class PageRankSession:
         if self._closed:
             return
         self._closed = True
-        for attr in ("R", "inc", "valid", "_out_deg", "_rb_in", "_rb_out",
-                     "_bmat", "_fault_tables", "_residual", "_out_deg_host",
-                     "_hg_prev"):
+        for attr in ("R", "inc", "g", "valid", "_out_deg", "_rb_in",
+                     "_rb_out", "_bmat", "_fault_tables", "_residual",
+                     "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -567,14 +754,20 @@ class PageRankSession:
         state — a zero-value delta on vertex 0's self-loop tile, on a push
         session a residual scatter of one zero (its result dropped), and an
         empty-batch step — so the kernel library is built and loaded and the
-        allocator holds the step's buffers before the first real update."""
+        allocator holds the step's buffers before the first real update.
+        Snapshot-mode sessions are already warm from their initial solve."""
         self._ensure_open()
-        z = np.zeros(1, np.int64)
-        self.inc.mat = ops.apply_delta(self.inc.mat, z, z, np.zeros(1))
-        if self._push:
-            pshe.scatter_residual(self._residual, z, np.zeros(1))
-        empty = np.zeros((0, 2), np.int64)
-        self._update_stream(empty, empty)
+        if self._stream:
+            z = np.zeros(1, np.int64)
+            self.inc.mat = ops.apply_delta(self.inc.mat, z, z, np.zeros(1))
+            if self._push:
+                pshe.scatter_residual(self._residual, z, np.zeros(1))
+            empty = np.zeros((0, 2), np.int64)
+            # the dt/df replay state must not see the empty warmup batch as
+            # "the last update"
+            saved = (self._last_batch, self._hg_prev, self._r_prev)
+            self._update_stream(empty, empty)
+            self._last_batch, self._hg_prev, self._r_prev = saved
         self._warm_idx = len(self._history)
 
     def report(self) -> SessionReport:
@@ -615,6 +808,14 @@ class PageRankSession:
         """Per-component device-resident bytes (the memory audit)."""
         if self._closed:
             return None
+        if self.inc is None:
+            g = self.g
+            return {
+                "ranks": self.R.nbytes + self.valid.nbytes,
+                "graph_snapshot": sum(
+                    getattr(g, f.name).nbytes for f in dataclasses.fields(g)
+                    if isinstance(getattr(g, f.name), torch.Tensor)),
+            }
         mat = self.inc.mat
         return {
             "ranks": self.R.nbytes + self.valid.nbytes,

@@ -1,14 +1,16 @@
 """Batch-update validation and generation (paper §5.1.4).
 
-Ports the parts of ``src/repro/core/delta.py`` the stream session uses:
-``validate_edge_batch``, ``random_batch`` and ``signed_edge_delta``, copied
-(numpy, host side).  Random batches mix deletions (sampled uniformly from
-existing edges) and insertions (uniform random non-connected pairs), sized
-as a fraction of |E|.
+Ports ``src/repro/core/delta.py``, copied (numpy, host side):
+``validate_edge_batch``, ``coalesce_batches``, ``random_batch``,
+``signed_edge_delta``, ``pure_deletion_batch`` and ``temporal_batches``.
+Random batches mix deletions (sampled uniformly from existing edges) and
+insertions (uniform random non-connected pairs), sized as a fraction of
+|E|.  Temporal batches are consecutive slices of a timestamped edge stream
+after loading a 90% prefix.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 
@@ -91,6 +93,37 @@ def validate_edge_batch(deletions, insertions, n: int
     return dels, ins
 
 
+def coalesce_batches(batches: Sequence[Tuple[np.ndarray, np.ndarray]],
+                     n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold an ordered run of update batches into ONE equivalent
+    ``(deletions, insertions)`` batch (last write per edge wins).
+
+    Insert-then-delete nets to a deletion (a no-op if the edge never
+    existed), delete-then-insert to an insertion.  The result has no
+    duplicates and no del/ins overlap, so it passes
+    :func:`validate_edge_batch` by construction."""
+    key_op: dict = {}
+    for dels, ins in batches:
+        d = np.asarray(dels, np.int64).reshape(-1, 2)
+        i = np.asarray(ins, np.int64).reshape(-1, 2)
+        for k in _edge_keys(d, n):
+            key_op[int(k)] = -1
+        for k in _edge_keys(i, n):
+            key_op[int(k)] = +1
+    if not key_op:
+        z = np.zeros((0, 2), np.int64)
+        return z, z
+
+    def unpack(keys):
+        a = np.asarray(sorted(keys), np.int64)
+        if not a.size:
+            return np.zeros((0, 2), np.int64)
+        return np.stack([a // n, a % n], 1)
+
+    return (unpack([k for k, op in key_op.items() if op < 0]),
+            unpack([k for k, op in key_op.items() if op > 0]))
+
+
 def random_batch(g: HostGraph, frac: float, *, seed: int = 0,
                  deletions_frac: float = 0.5
                  ) -> Tuple[np.ndarray, np.ndarray]:
@@ -126,3 +159,27 @@ def signed_edge_delta(deletions: np.ndarray, insertions: np.ndarray
     cols = np.concatenate([dels[:, 0], ins[:, 0]])
     vals = np.concatenate([-np.ones(len(dels)), np.ones(len(ins))])
     return rows, cols, vals
+
+
+def pure_deletion_batch(g: HostGraph, frac: float, *, seed: int = 0
+                        ) -> np.ndarray:
+    """For the stability experiment (§5.2.3): a delete-only batch."""
+    rng = np.random.default_rng(seed)
+    b = max(1, min(int(round(frac * g.m)), g.m))
+    idx = rng.choice(g.m, size=b, replace=False)
+    return g.edges[idx]
+
+
+def temporal_batches(stream: np.ndarray, *, prefix_frac: float = 0.9,
+                     batch_frac: float = 1e-3
+                     ) -> Tuple[np.ndarray, Iterator[np.ndarray]]:
+    """Split a timestamped stream into a 90% prefix + fixed-size batches."""
+    m_total = stream.shape[0]
+    cut = int(prefix_frac * m_total)
+    bs = max(1, int(batch_frac * m_total))
+
+    def batches() -> Iterator[np.ndarray]:
+        for lo in range(cut, m_total, bs):
+            yield stream[lo:lo + bs]
+
+    return stream[:cut], batches()

@@ -4,11 +4,15 @@ Ports ``src/repro/core/graph.py``: ``HostGraph`` (numpy, copied) is the
 mutable host store; ``GraphSnapshot`` is the padded view every engine
 consumes, built on the host and holding its arrays as torch tensors on the
 snapshot's device.  Self-loops are added to every vertex (paper §5.1.3),
-which removes dead ends and the global teleport correction.
+which removes dead ends and the global teleport correction.  The snapshot
+helpers the dense engine and the frontier marking share
+(``contributions``, ``pull_all``, ``out_neighbor_or``, ``initial_ranks``,
+``pad_ranks``) are plain PyTorch, as the reference's are plain XLA.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,6 +72,16 @@ class GraphSnapshot:
         included) — the input to the block-sparse pull-matrix builder."""
         return (self.src[:self.m].cpu().numpy().astype(np.int64),
                 self.dst[:self.m].cpu().numpy().astype(np.int64))
+
+    @functools.cached_property
+    def in_deg(self) -> torch.Tensor:
+        """[n_pad] in-edge count per vertex (self-loops included): the
+        segment lengths of the dst-sorted real edges, found once per
+        snapshot by a binary search of the vertex starts (no scatter)."""
+        bounds = torch.arange(self.n_pad + 1, dtype=self.dst.dtype,
+                              device=self.device)
+        ptr = torch.searchsorted(self.dst[:self.m].contiguous(), bounds)
+        return ptr[1:] - ptr[:-1]
 
     def block_in_edges(self) -> torch.Tensor:
         """[n_blocks] i32: in-edge count per dst-block (sweep work metric)."""
@@ -205,3 +219,72 @@ def initial_ranks(g: GraphSnapshot, dtype=torch.float64) -> torch.Tensor:
     r = torch.full((g.n_pad,), 1.0 / g.n, dtype=dt, device=g.device)
     return torch.where(g.vertex_valid, r, torch.zeros((), dtype=dt,
                                                       device=g.device))
+
+
+# ---------------------------------------------------------------------------
+# torch-side helpers shared by the engines
+# ---------------------------------------------------------------------------
+
+def contributions(g: GraphSnapshot, ranks: torch.Tensor) -> torch.Tensor:
+    """``R[u] / outdeg(u)`` padded with a trailing 0 for the phantom
+    vertex."""
+    deg = g.out_deg.clamp(min=1).to(ranks.dtype)
+    c = torch.where(g.vertex_valid, ranks[:g.n_pad] / deg,
+                    torch.zeros((), dtype=ranks.dtype, device=ranks.device))
+    return torch.cat([c, c.new_zeros(1)])
+
+
+def pull_all(g: GraphSnapshot, ranks: torch.Tensor, *, alpha: float,
+             personalization=None) -> torch.Tensor:
+    """Dense pull step over every vertex: one full SpMV.
+
+    The sum over each vertex's in-edges is ``torch.segment_reduce`` over
+    the dst-sorted real edges, one segment per vertex: a segmented sum with
+    no atomics, so its result repeats bit for bit on the card (an
+    ``index_add_`` there adds in an unfixed order).  ``personalization``
+    (a restart distribution [n_pad], summing to 1 over valid vertices)
+    replaces the uniform ``1/n`` teleport."""
+    c = contributions(g, ranks)
+    src = g.src[:g.m].long()
+    pulled = torch.segment_reduce(c[src], "sum", lengths=g.in_deg,
+                                  unsafe=True)
+    dt, dev = ranks.dtype, ranks.device
+    one_m_a = torch.tensor(1.0 - alpha, dtype=dt, device=dev)
+    if personalization is None:
+        base = one_m_a / torch.tensor(g.n, dtype=dt, device=dev)
+    else:
+        base = one_m_a * torch.as_tensor(personalization, dtype=dt,
+                                         device=dev)[:g.n_pad]
+    r = base + torch.tensor(alpha, dtype=dt, device=dev) * pulled
+    return torch.where(g.vertex_valid, r, torch.zeros((), dtype=dt,
+                                                      device=dev))
+
+
+def out_neighbor_or(g: GraphSnapshot, flags: torch.Tensor) -> torch.Tensor:
+    """OR-semiring SpMV on the transposed adjacency: the indicator of the
+    vertices with at least one in-neighbour in ``flags`` (the
+    out-neighbourhood of the flagged set).  A max-scatter over ``odst``:
+    order-free, so exact on the card."""
+    return _or_scatter(g.osrc.long(), g.odst.long(), flags, g.vertex_valid)
+
+
+def _or_scatter(osrc: torch.Tensor, odst: torch.Tensor, flags: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """:func:`out_neighbor_or` over int64 copies of the padded out-edge
+    arrays (callers that hop many times convert them once)."""
+    n_pad = valid.shape[0]
+    f = torch.cat([flags[:n_pad].to(torch.int32),
+                   torch.zeros(1, dtype=torch.int32, device=flags.device)])
+    hit = torch.zeros(n_pad + 1, dtype=torch.int32, device=flags.device)
+    hit.scatter_reduce_(0, odst, f[osrc], reduce="amax")
+    return (hit[:n_pad] > 0) & valid
+
+
+def pad_ranks(g: GraphSnapshot, ranks) -> torch.Tensor:
+    """Pad/crop a rank vector from another snapshot family onto this one
+    (keeps the ranks' dtype; placed on the snapshot's device)."""
+    ranks = torch.as_tensor(ranks, device=g.device)
+    r = torch.zeros(g.n_pad, dtype=ranks.dtype, device=g.device)
+    k = min(int(ranks.shape[0]), g.n_pad)
+    r[:k] = ranks[:k]
+    return r

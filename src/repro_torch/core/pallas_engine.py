@@ -1,7 +1,8 @@
 """Fused frontier engine — the DF_LF sweep loop on the card.
 
 Ports the untiered part of ``src/repro/core/pallas_engine.py``
-(``build_pull_matrix``, ``_driver``, ``_stats_from_vec``, ``run_pallas``).
+(``build_pull_matrix``, ``_driver``, ``_stats_from_vec``, ``run_pallas``
+and the registry adapter ``PallasEngine`` / ``as_engine``).
 The pull runs through the tile SpMV over compacted active row-blocks (sum
 semiring, kernel #2), Dynamic Frontier expansion is the same kernel in the
 OR semiring over the candidate row-blocks whose tiles meet a changed
@@ -281,3 +282,37 @@ def run_pallas(g: GraphSnapshot, R0: torch.Tensor, affected0: torch.Tensor,
         active_policy=active_policy, max_iterations=max_iterations,
         full=full)
     return R[:g.n_pad], _stats_from_vec(sv)
+
+
+# ---------------------------------------------------------------------------
+# registry adapter (discovered lazily by repro_torch.api.registry, so this
+# module never imports the api package)
+# ---------------------------------------------------------------------------
+
+class PallasEngine:
+    """Registry adapter for the fused frontier engine.  ``mat`` / ``aux``
+    carry the incrementally maintained pull matrix + per-block operands
+    (:class:`repro_torch.core.incremental.IncrementalPullMatrix`); without
+    them each call builds the pull matrix of ``g``.  The kernel is picked by
+    the tensors' device, so ``backend`` must be ``None``."""
+
+    name = "pallas"
+    fault_domains = ("thread",)
+
+    def run(self, g, R0, affected0, *, mode, expand, alpha, tau, tau_f,
+            max_iterations, faults, tile, active_policy,
+            mat=None, aux=None, backend=None, shards=None):
+        from repro_torch.api.registry import reject_shard_spec
+        reject_shard_spec(self.name, shards)
+        if backend is not None:
+            raise ValueError(f"backend={backend!r}: the port's pallas engine "
+                             "has no tile-backend switch; leave it None")
+        del tile    # blocked-engine knob; the fused driver launches tiles
+        return run_pallas(
+            g, R0, affected0, mode=mode, expand=expand, alpha=alpha,
+            tau=tau, tau_f=tau_f, max_iterations=max_iterations,
+            faults=faults, active_policy=active_policy, mat=mat, aux=aux)
+
+
+def as_engine() -> PallasEngine:
+    return PallasEngine()

@@ -2,9 +2,10 @@
 
 ``rmat`` (power-law, web/social class), ``erdos_renyi`` (uniform),
 ``grid_road`` (2-D lattice with random shortcuts, road class),
-``kmer_chains`` (long chains, protein k-mer class) and ``powerlaw`` (Zipf
-out-degrees), copied: numpy on the host, and the same edge sets as the JAX
-package's per seed.
+``kmer_chains`` (long chains, protein k-mer class), ``powerlaw`` (Zipf
+out-degrees) and ``temporal_stream`` (timestamped edge insertions, the
+temporal-network class), copied: numpy on the host, and the same edge sets
+and streams as the JAX package's per seed.
 """
 from __future__ import annotations
 
@@ -131,3 +132,21 @@ def powerlaw(n: int, avg_degree: int = 8, *, seed: int = 0,
     dst = rng.integers(0, n, size=src.size)
     keep = src != dst
     return HostGraph(n, _dedupe(n, src[keep], dst[keep]))
+
+
+def temporal_stream(n: int, m_total: int, *, seed: int = 0,
+                    preferential: bool = True) -> np.ndarray:
+    """Timestamped edge insertions [m_total, 2]; later edges prefer recently
+    active vertices (mirrors wiki-talk / stackoverflow growth)."""
+    rng = np.random.default_rng(seed)
+    if not preferential:
+        return np.stack([rng.integers(0, n, m_total),
+                         rng.integers(0, n, m_total)], 1)
+    # preferential attachment-ish: sample dst from a growing popularity table
+    src = rng.integers(0, n, m_total)
+    pop = rng.integers(0, n, m_total)    # candidate by popularity recency
+    uni = rng.integers(0, n, m_total)
+    take_pop = rng.random(m_total) < 0.6
+    dst = np.where(take_pop, pop * rng.random(m_total), uni).astype(np.int64)
+    dst = np.clip(dst, 0, n - 1)
+    return np.stack([src, dst], 1)

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (reading the packed nonzero index) against
 their plain PyTorch versions (reading the dense tiles), the index refresh on
 the card, a stream on the card against the same stream on the CPU (pull and
-push drivers), and the push path's residual scatter, host syncs and masking
-of the kernel's undefined rows.
+push drivers), the push path's residual scatter, host syncs and masking
+of the kernel's undefined rows, and the variant matrix (dt, the replays,
+snapshot mode, the dense engine) on the card against the CPU.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -226,6 +227,79 @@ def test_cuda_session_matches_cpu_session(cuda_device):
         assert float((gpu.R.cpu() - cpu.R).abs().max()) <= 1e-12
     assert bsk.block_spmv_cuda.launches > launches0[0]
     assert bsk.block_spmv_active_cuda.launches > launches0[1]
+
+
+@pytest.mark.cuda
+def test_cuda_variant_matrix_matches_cpu(cuda_device):
+    """dt updates, the df/dt replays, ``df_pagerank`` with helping and the
+    dense engine on the card against the same calls on the CPU: equal
+    marks and counters, ranks within 1e-12."""
+    import warnings
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core import frontier as fr
+    from repro_torch.core import pagerank as pr
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import grid_road
+    hg = grid_road(64, seed=7)
+    cfg = EngineConfig(block_size=64, tau=1e-10)
+    gpu = PageRankSession.from_graph(hg, config=cfg, device=cuda_device)
+    cpu = PageRankSession.from_graph(hg, config=cfg, device="cpu")
+
+    def same(a, b):
+        for c in ("sweeps", "iterations", "blocks_processed",
+                  "edges_processed", "converged"):
+            assert getattr(a.stats, c) == getattr(b.stats, c), c
+        assert float((a.ranks.cpu() - b.ranks).abs().max()) <= 1e-12
+
+    for i in range(2):
+        dels, ins = random_batch(cpu.hg, 1e-3, seed=10 + i,
+                                 deletions_frac=0.2)
+        same(gpu.update(dels, ins, variant="dt"),
+             cpu.update(dels, ins, variant="dt"))
+        assert gpu._dt_bfs == cpu._dt_bfs
+    for variant in ("df", "dt"):
+        same(gpu.recompute(variant), cpu.recompute(variant))
+    dels, ins = random_batch(cpu.hg, 1e-3, seed=20, deletions_frac=0.2)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        g0 = cpu.hg.snapshot(block_size=64, device=dev)
+        g1 = cpu.hg.apply_batch(dels, ins).snapshot(block_size=64,
+                                                    device=dev)
+        b = fr.batch_to_device(g1, dels, ins)
+        first = np.arange(b.shape[0]) % 3 == 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            out.append((fr.dt_affected(g0, g1, b),
+                        pr.df_pagerank(g0, g1, b, cpu.ranks, tau=1e-10,
+                                       helping_first_pass=first),
+                        pr.static_pagerank(g1, engine="dense", tau=1e-10)))
+    (dt_g, df_g, dense_g), (dt_c, df_c, dense_c) = out
+    assert torch.equal(dt_g.cpu(), dt_c)
+    same(df_g, df_c)
+    same(dense_g, dense_c)
+
+
+@pytest.mark.cuda
+def test_cuda_pull_all_and_or_scatter_repeat_bit_for_bit(cuda_device):
+    """``pull_all``'s segmented sum and ``out_neighbor_or``'s max-scatter
+    give the same bits on every call on the card; the sum agrees with the
+    CPU's within the f64 tolerance (another summation order), the OR
+    exactly."""
+    from repro_torch.core.graph import out_neighbor_or, pull_all
+    from repro_torch.graphs.generators import rmat
+    hg = rmat(12, avg_degree=8, seed=4)
+    gg = hg.snapshot(block_size=64, device=cuda_device)
+    gc = hg.snapshot(block_size=64, device="cpu")
+    rng = np.random.default_rng(1)
+    r = torch.from_numpy(rng.random(gc.n_pad))
+    f = torch.from_numpy(rng.random(gc.n_pad) < 0.05)
+    y = pull_all(gg, r.to(cuda_device), alpha=0.85)
+    assert torch.equal(y, pull_all(gg, r.to(cuda_device), alpha=0.85))
+    torch.testing.assert_close(y.cpu(), pull_all(gc, r, alpha=0.85),
+                               rtol=0, atol=TOLS[torch.float64])
+    hit = out_neighbor_or(gg, f.to(cuda_device))
+    assert torch.equal(hit.cpu(), out_neighbor_or(gc, f))
 
 
 def _push_session(device):

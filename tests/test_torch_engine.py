@@ -28,6 +28,15 @@ COUNTERS = ("sweeps", "iterations", "blocks_processed", "edges_processed",
             "converged", "dnf")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test (see tests/test_torch_push.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _problem(kind, seed=0):
     if kind == "grid":
         jg = jgen.grid_road(24, seed=seed)

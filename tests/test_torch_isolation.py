@@ -20,7 +20,9 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
-    assert "repro_torch.api.session" in mods
+    for m in ("repro_torch.api.session", "repro_torch.api.registry",
+              "repro_torch.core.properties", "repro_torch.core.pagerank"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -402,9 +402,10 @@ def test_dt_update_and_replay_recompute_rejected():
             sess.recompute(variant)
     with pytest.raises(ValueError, match="invalid"):
         sess.recompute("nope")
+    # a pull session replays the last batch, and has none yet
     pull = TSession.from_graph(hg, config=_tcfg("pull"), device="cpu")
     for variant in ("df", "dt"):
-        with pytest.raises(NotImplementedError, match="A 4"):
+        with pytest.raises(ValueError, match="no batch"):
             pull.recompute(variant)
 
 
@@ -447,10 +448,11 @@ def test_nd_update_rebuilds_residual():
     ({"mode": "bb", "driver": "push"}, ValueError, "mode must be 'lf'"),
     ({"faults": FaultPlan(n_threads=2), "driver": "push"}, ValueError,
      "fault tables"),
-    ({"integrity": {"mass_tol": 1e-6}, "driver": "push"},
-     NotImplementedError, "A 11"),
-    ({"fault_domain": object(), "driver": "push"}, NotImplementedError,
-     "A 9"),
+    # the reference refuses these for good, before any later-slice refusal
+    ({"integrity": {"mass_tol": 1e-6}, "driver": "push"}, ValueError,
+     "driver='push' does not support integrity="),
+    ({"fault_domain": object(), "driver": "push"}, ValueError,
+     "driver='push' does not host fault domains on the drive path"),
 ])
 def test_push_config_rules(kw, err, match):
     with pytest.raises(err, match=match):

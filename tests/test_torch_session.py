@@ -35,6 +35,15 @@ COUNTERS = ("sweeps", "iterations", "blocks_processed", "edges_processed",
             "converged")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test (see tests/test_torch_push.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _open(jg, **cfg):
     js = JSession.from_graph(jg, config=JConfig(
         engine="pallas", backend="xla", block_size=B, tau=1e-10, **cfg))
@@ -172,7 +181,7 @@ def test_session_from_numpy_round_trips():
     ({"integrity": {"mass_tol": 1e-6}}, "A 11"),
     ({"fault_domain": object()}, "A 9"),
     ({"engine": "blocked"}, "A 7"),
-    ({"engine": "dense"}, "A 3"),
+    ({"engine": "dense"}, "A 7"),        # the dense engine's LF mode
     ({"engine": "walk"}, "A 13"),
     ({"engine": "distributed"}, "A 14"),
 ])
@@ -199,10 +208,17 @@ def test_config_validation_and_backend_rule():
 
 
 def test_dt_variant_raises_not_implemented():
+    """A pull ``update(variant="dt")`` raised ``NotImplementedError`` until
+    the port had the DT marking.  It runs now (its parity with the JAX
+    session is in tests/test_torch_variants.py); what still raises
+    ``NotImplementedError`` on this axis is the dense engine's LF mode,
+    which the blocked engine (A 7) brings."""
     ts = TSession.from_graph(THostGraph(16, np.array([[0, 1], [1, 2]])),
                              config=TConfig(block_size=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="dt"):
-        ts.update(np.zeros((0, 2)), np.array([[0, 5]]), variant="dt")
+    res = ts.update(np.zeros((0, 2)), np.array([[0, 5]]), variant="dt")
+    assert res.converged and ts.hg.has_edges(np.array([[0, 5]])).all()
+    with pytest.raises(NotImplementedError, match="A 7"):
+        TConfig(engine="dense", mode="lf")
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
