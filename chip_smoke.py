@@ -6,8 +6,9 @@
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
 Phases, each of which raises (non-zero exit) on any failed check:
 
-1. device and build: the card's name and power limit, the CUDA tile-SpMV
-   kernels built from ``src/repro_torch/kernels/block_spmv/csrc``;
+1. device and build: the card's name and power limit, the CUDA kernels
+   built from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source,
+   started together);
 2. kernel parity: each kernel (reading the packed nonzero index) against
    its plain PyTorch version (reading the dense tiles) on the card (sum and
    or semirings; f32, f64, bf16; B = 8, 64, 128; exact and padded layouts
@@ -58,10 +59,28 @@ Phases, each of which raises (non-zero exit) on any failed check:
    mode: ``df_pagerank`` on one more batch with the helping marking (a
    third of the batch in the first pass) and fault-free — equal affected
    sets, both held to the oracle — and a cold solve of the ``dense``
-   engine (BB) on the same snapshot, held to the same oracle.
+   engine (BB) on the same snapshot, held to the same oracle;
+8. the blocked Gauss–Seidel engine on phase 3's final graph, with the
+   launch counters zeroed just before and read just after: a cold
+   ``static_pagerank(mode="lf", engine="blocked")`` held to phase 3's
+   oracle; three snapshot-mode blocked sessions (fault-free, ``faults=`` a
+   plan with 48 of 64 threads crashed, and ``fault_domain=`` the thread
+   domain of the same plan) each taking the same two df batches — the two
+   faulted ones bit-identical — held to ``reference_pagerank`` of the final
+   graph; then ``df_pagerank`` on the second batch: the dense engine's LF
+   mode (bit-identical to the session's update), LF under the crash plan,
+   BB on the blocked and the pallas engine — ``nd_pagerank`` (no
+   expansion: sweeps, blocks and edges equal) and ``df_pagerank`` (its
+   counters printed side by side: ROADMAP C 7) — and BB under one crash
+   (dnf); per solve its sweeps, blocks, edges and the sweep kernel's device
+   time.  Then the sweep kernel against its plain
+   version (LF and BB, on the card) over all 16,384 slots of a cold start
+   and over the compacted DF frontier of the first batch, timed beside its
+   bound.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
-push path's (phase 6) and the variant matrix's (phase 7).  Prints the
+push path's (phase 6), the variant matrix's (phase 7) and the blocked
+path's (phase 8).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -69,6 +88,7 @@ result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -1062,6 +1082,332 @@ def _variants_phase(bsk, hg, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the blocked Gauss–Seidel engine on the main path's graph
+# ---------------------------------------------------------------------------
+
+BLOCKED_FAULTS = dict(n_threads=64, n_crashed=48, crash_window=4, seed=3)
+
+
+class _SweepClock:
+    """Device time of every sweep launched through the blocked engine's
+    dispatcher while installed: CUDA events around each call."""
+
+    def __init__(self, bws):
+        self.bws, self.real, self.pairs = bws, bws.blocked_sweep, []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        self.bws.blocked_sweep = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.bws.blocked_sweep = self.real
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def _sweep_bound(src_h, ibp_h, ids: np.ndarray, edges: np.ndarray,
+                 block: int, item: int) -> tuple:
+    """The fewest bytes of one sweep over the listed blocks ``ids`` whose
+    per-slot edge counts are ``edges``: each in-edge's source id (4 B), each
+    expanded out-edge's two ids (8 B), R and inv_deg read once at every
+    distinct source, R and RC written at every listed vertex; 2 flops per
+    in-edge.  Returns (bound ms, by, bytes)."""
+    lo, hi = ibp_h[ids], ibp_h[ids + 1]
+    n_in = int((hi - lo).sum())
+    n_out = int(edges.sum()) - n_in
+    srcs = len(np.unique(np.concatenate([src_h[a:b]
+                                         for a, b in zip(lo, hi)])))
+    work = n_in * 4 + n_out * 8 + srcs * 2 * item + len(ids) * block * (
+        item + 1)
+    bound, by = _bound(work, 2 * n_in)
+    return bound, by, work
+
+
+def _sweep_state(R, aff):
+    return R.clone(), aff.clone(), aff.clone()
+
+
+def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
+                  what: str) -> dict:
+    """One LF and one BB sweep through the kernel and through its plain
+    version (both on the card) from the same state: affected, RC and the
+    per-slot edges array-equal, R and maxdr within 1e-12.  Returns the
+    worst error, the LF kernel's per-slot edges, the plain LF sweep's host
+    time and the kernel's device time (mean of 3 fresh launches)."""
+    sg = blk.sweep_graph(g, R0.dtype)
+    kw = dict(n=g.n, alpha=0.85, tau=TAU, tau_f=TAU / 1000.0 if expand
+              else float("inf"), tile=512, expand=expand)
+    out = {"err": 0.0}
+    for mode in ("lf", "bb"):
+        jacobi = mode == "bb"
+        res = []
+        for fn in (bws.blocked_sweep_cuda, bws.blocked_sweep_plain):
+            R, A, C = _sweep_state(R0, aff0)
+            read = R.clone() if jacobi else R
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, e = fn(sg, R, read, A, C, ids, mask, jacobi=jacobi, **kw)
+            torch.cuda.synchronize()
+            res.append((R, A, C, m, e, time.perf_counter() - t0))
+        (Rk, Ak, Ck, mk, ek, _), (Rp, Ap, Cp, mp, ep, tp) = res
+        err = max(float((Rk - Rp).abs().max()), float((mk - mp).abs().max()))
+        _check(bool(torch.equal(Ak, Ap)) and bool(torch.equal(Ck, Cp))
+               and bool(torch.equal(ek, ep)),
+               f"blocked_sweep ({what}, {mode}): affected, RC or per-slot "
+               "edges differ from the plain version")
+        _check(err <= 1e-12, f"blocked_sweep ({what}, {mode}): max abs err "
+               f"{err} > 1e-12")
+        out["err"] = max(out["err"], err)
+        if mode == "lf":
+            out["edges"] = ek.cpu().numpy()
+            out["plain_s"] = tp
+            times = []
+            for _ in range(3):
+                R, A, C = _sweep_state(R0, aff0)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                bws.blocked_sweep_cuda(sg, R, R, A, C, ids, mask,
+                                       jacobi=False, **kw)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            out["ms"] = float(np.mean(times))
+    return out
+
+
+def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
+    """Phase 8 on phase 3's final graph (``hg3``, whose oracle is ``ref3``).
+    Returns (the path's launch counts, the sweep kernel's row)."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core import blocked as blk
+    from repro_torch.core import frontier as fr
+    from repro_torch.core import pagerank as pr
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.fault_domain import ThreadFaultDomain
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.graph import initial_ranks, pad_ranks
+    t_phase = time.perf_counter()
+    g3 = hg3.snapshot(block_size=BLOCK, device="cuda")
+    n_rb, item = g3.n_blocks, 8
+    src_h = g3.src.cpu().numpy()
+    ibp_h = g3.in_block_ptr.cpu().numpy().astype(np.int64)
+    cold_ids = np.arange(n_rb)
+    cold_bound = _sweep_bound(src_h, ibp_h, cold_ids,
+                              ibp_h[1:] - ibp_h[:-1], BLOCK, item)
+
+    def report(what, res, clock, wall_s):
+        st = res.stats
+        per = clock.ms() / max(st.sweeps, 1)
+        print(f"blocked {what}: {wall_s * 1e3:.2f} ms wall, sweeps "
+              f"{st.sweeps}, blocks {st.blocks_processed}, edges "
+              f"{st.edges_processed}, sim_time_ms {st.sim_time_ms:.6f}, "
+              f"converged {st.converged}, dnf {st.dnf}; sweep kernel "
+              f"{clock.ms():.3f} ms ({per:.3f} ms a sweep) [{smi}]",
+              flush=True)
+
+    # -- the path: launch counters zeroed just before, read just after -----
+    bws.blocked_sweep_cuda.launches = 0
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with _SweepClock(bws) as clock:
+            t0 = time.perf_counter()
+            cold = pr.static_pagerank(g3, mode="lf", engine="blocked",
+                                      tau=TAU)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report("LF cold solve", cold, clock, wall)
+        err = _linf_ref(cold.ranks, ref3)
+        print(f"blocked LF cold solve: L_inf {err:.3e} to phase 3's oracle; "
+              f"one sweep's bound {cold_bound[0]:.4f} ms by {cold_bound[1]} "
+              f"({cold_bound[2]} bytes) [{smi}]", flush=True)
+        _check(cold.converged and err <= 1e-9,
+               f"blocked LF cold solve: converged {cold.converged}, L_inf "
+               f"{err}")
+        _check(cold.stats.blocks_processed == cold.stats.sweeps * n_rb,
+               "a cold LF sweep skipped a block")
+
+        # snapshot-mode sessions: fault-free, faults=plan, and the thread
+        # domain of the same plan, each taking the same two df batches
+        b1 = random_batch(hg3, 1e-4, seed=800, deletions_frac=0.2)
+        b2 = random_batch(hg3.apply_batch(*b1), 1e-4, seed=801,
+                          deletions_frac=0.2)
+        base = dict(engine="blocked", block_size=BLOCK, tau=TAU,
+                    dtype=torch.float64)
+        cfgs = {"fault-free": EngineConfig(**base),
+                "faults=plan": EngineConfig(
+                    **base, faults=FaultPlan(**BLOCKED_FAULTS)),
+                "thread domain": EngineConfig(**base, fault_domain=(
+                    ThreadFaultDomain(FaultPlan(**BLOCKED_FAULTS))))}
+        sessions, steps = {}, {}
+        for name, cfg in cfgs.items():
+            sess = PageRankSession.from_graph(hg3, config=cfg,
+                                              r0=cold.ranks, device="cuda")
+            _check(not sess._stream, "a blocked session opened in stream "
+                   "mode")
+            steps[name] = []
+            for i, (dels, ins) in enumerate((b1, b2)):
+                if name == "fault-free" and i == 1:
+                    g4, r_a1 = sess.g, sess.R.clone()
+                with _SweepClock(bws) as clock:
+                    res = sess.update(dels, ins, variant="df")
+                    torch.cuda.synchronize()
+                report(f"session ({name}) df update {i}", res, clock,
+                       res.wall_time_s)
+                steps[name].append(res)
+            sessions[name] = sess
+        g5 = sessions["fault-free"].g
+        t0 = time.perf_counter()
+        ref5 = pr.reference_pagerank(g5).cpu().numpy()[:g5.n]
+        print(f"oracle of the sessions' final graph (reference_pagerank, "
+              f"500 pull steps on the card): {time.perf_counter() - t0:.2f}"
+              f" s", flush=True)
+        errs = {name: _linf_ref(s.R, ref5) for name, s in sessions.items()}
+        same = (bool(torch.equal(sessions["faults=plan"].R,
+                                 sessions["thread domain"].R))
+                and all(a.stats == b.stats for a, b in zip(
+                    steps["faults=plan"], steps["thread domain"])))
+        print(f"blocked sessions: L_inf {errs}; thread domain equals "
+              f"faults=plan bit for bit: {same}", flush=True)
+        _check(same, "fault_domain=ThreadFaultDomain(plan) differs from "
+               "faults=plan")
+        for name, e in errs.items():
+            _check(all(r.converged for r in steps[name]) and e <= 1e-9,
+                   f"blocked session ({name}): L_inf {e}")
+
+        # df_pagerank on the second batch, from the fault-free session's
+        # ranks after the first
+        batch2 = fr.batch_to_device(g5, *b2)
+        r_a1 = pad_ranks(g4, r_a1)
+
+        def solve(what, fn, *args, **kw):
+            with _SweepClock(bws) as clock:
+                t0 = time.perf_counter()
+                r = fn(*args, tau=TAU, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report(what, r, clock, wall)
+            return r
+
+        df_args = (pr.df_pagerank, g4, g5, batch2, r_a1)
+        dense = solve("df_pagerank (dense, LF)", *df_args, mode="lf",
+                      engine="dense")
+        _check(bool(torch.equal(dense.ranks, steps["fault-free"][1].ranks))
+               and dense.stats == steps["fault-free"][1].stats,
+               "the dense engine's LF mode differs from the blocked "
+               "session's update")
+        lf_f = solve("df_pagerank (LF, 48 of 64 threads crashed)", *df_args,
+                     mode="lf", engine="blocked",
+                     faults=FaultPlan(**BLOCKED_FAULTS))
+        # BB on both engines: without expansion (nd) they run the same
+        # Jacobi recurrence, so every counter must match; with the DF
+        # expansion the blocked scan lets a slot update a vertex that an
+        # earlier slot of the same sweep marked, and the fused driver does
+        # not (the reference's engines differ alike: ROADMAP C 7)
+        bb = {}
+        for eng in ("blocked", "pallas"):
+            bb["nd", eng] = solve(f"nd_pagerank (BB, {eng})", pr.nd_pagerank,
+                                  g5, r_a1, mode="bb", engine=eng)
+            bb["df", eng] = solve(f"df_pagerank (BB, {eng})", *df_args,
+                                  mode="bb", engine=eng)
+        bb_c = solve("df_pagerank (BB, one crash)", *df_args, mode="bb",
+                     engine="blocked", faults=FaultPlan(
+                         n_threads=64, n_crashed=1, crash_window=1, seed=3))
+    errs = {"dense LF": _linf_ref(dense.ranks, ref5),
+            "LF under faults": _linf_ref(lf_f.ranks, ref5),
+            **{f"{v} BB {eng}": _linf_ref(r.ranks, ref5)
+               for (v, eng), r in bb.items()}}
+    mutual = {v: float((bb[v, "blocked"].ranks - bb[v, "pallas"].ranks)
+                       .abs().max()) for v in ("nd", "df")}
+    counters = ("sweeps", "blocks_processed", "edges_processed")
+    diff = {k: getattr(bb["df", "blocked"].stats, k)
+            - getattr(bb["df", "pallas"].stats, k) for k in counters}
+    print(f"L_inf to the oracle {errs}; BB blocked vs pallas L_inf "
+          f"{mutual}; nd BB counters equal; df BB counters blocked minus "
+          f"pallas {diff}; the dense LF solve equals the session's update "
+          "bit for bit", flush=True)
+    for k in counters:
+        _check(getattr(bb["nd", "blocked"].stats, k)
+               == getattr(bb["nd", "pallas"].stats, k),
+               f"nd BB {k}: blocked {getattr(bb['nd', 'blocked'].stats, k)}"
+               f" != pallas {getattr(bb['nd', 'pallas'].stats, k)}")
+    for v, e in mutual.items():
+        _check(e <= 1e-9, f"{v} BB blocked vs pallas L_inf {e}")
+    _check(lf_f.converged and dense.converged
+           and all(r.converged for r in bb.values()),
+           "a solve on the blocked path did not converge")
+    for what, e in errs.items():
+        _check(e <= 1e-9, f"{what}: L_inf vs the oracle {e} > 1e-9")
+    _check(bb_c.stats.dnf and not bb_c.converged,
+           "BB under a crash did not end dnf")
+    launches = {"blocked_sweep": bws.blocked_sweep_cuda.launches,
+                "block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches}
+    _check(launches["blocked_sweep"] > 0, "the blocked path launched no "
+           "sweep kernel")
+
+    # -- the kernel against its plain version (launches not counted) --------
+    valid_x = torch.cat([g3.vertex_valid,
+                         torch.zeros(1, dtype=torch.bool, device="cuda")])
+    cold_par = _sweep_parity(
+        bws, blk, g3, initial_ranks(g3), valid_x,
+        torch.arange(n_rb, dtype=torch.int32, device="cuda"),
+        torch.ones(n_rb, dtype=torch.bool, device="cuda"), expand=False,
+        what=f"cold start, all {n_rb} slots")
+    batch1 = fr.batch_to_device(g4, *b1)
+    aff = fr.initial_affected(g3, g4, batch1)
+    ids_full, n_act = blk.active_blocks(aff, n_blocks=n_rb,
+                                        block_size=BLOCK)
+    n_act = int(n_act)
+    K = blk.slot_capacity(n_act, n_rb)
+    mask = torch.arange(K, device="cuda") < n_act
+    df_par = _sweep_parity(
+        bws, blk, g4, pad_ranks(g4, cold.ranks),
+        torch.cat([aff, torch.zeros(1, dtype=torch.bool, device="cuda")]),
+        ids_full[:K].contiguous(), mask, expand=True,
+        what=f"DF frontier, {n_act} of {K} slots")
+    df_ids = ids_full[:n_act].cpu().numpy().astype(np.int64)
+    df_bound = _sweep_bound(g4.src.cpu().numpy(),
+                            g4.in_block_ptr.cpu().numpy().astype(np.int64),
+                            df_ids, df_par["edges"][:n_act], BLOCK, item)
+    print(f"blocked_sweep: cold sweep of all {n_rb} slots {cold_par['ms']:.3f}"
+          f" ms on the card (bound {cold_bound[0]:.4f} ms by "
+          f"{cold_bound[1]}, {cold_bound[2]} bytes; "
+          f"{cold_par['ms'] * 1e3 / n_rb:.3f} us a slot), plain version "
+          f"{cold_par['plain_s'] * 1e3:.1f} ms; DF frontier sweep of {n_act}"
+          f" slots {df_par['ms']:.4f} ms (bound {df_bound[0]:.5f} ms by "
+          f"{df_bound[1]}, {df_bound[2]} bytes), plain version "
+          f"{df_par['plain_s'] * 1e3:.1f} ms; kernel vs plain: LF and BB, "
+          f"affected / RC / per-slot edges array-equal, max abs err "
+          f"{max(cold_par['err'], df_par['err']):.3e} [{smi}]", flush=True)
+    print(f"launches on the blocked path: {launches}; phase 8 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    row = dict(
+        name="blocked_sweep", route="cuda",
+        source="src/repro_torch/kernels/blocked_sweep/csrc/blocked_sweep.cu",
+        replaces="src/repro/core/blocked.py::sweep (lax.scan, no Pallas "
+        "kernel)",
+        launches=launches["blocked_sweep"],
+        max_abs_err=max(cold_par["err"], df_par["err"]),
+        ms=cold_par["ms"], plain_ms=cold_par["plain_s"] * 1e3,
+        bound_ms=cold_bound[0], bound_by=cold_bound[1], library_ms=None)
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1080,6 +1426,7 @@ def main() -> None:
     from repro_torch.graphs.generators import grid_road
     from repro_torch.kernels.block_spmv import block_spmv as bsk
     from repro_torch.kernels.block_spmv import ops
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
 
     t_start = time.perf_counter()
     # -- phase 1: device and build -----------------------------------------
@@ -1094,9 +1441,10 @@ def main() -> None:
     print(f"nvidia-smi: {smi}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    bsk.library()
-    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with concurrent.futures.ThreadPoolExecutor() as pool:   # one nvcc each
+        list(pool.map(lambda lib: lib(), (bsk.library, bws.library)))
+    print(f"kernel builds + loads (block_spmv, blocked_sweep, in parallel): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- phase 2: kernel parity ---------------------------------------------
     rng = np.random.default_rng(2024)
@@ -1176,7 +1524,8 @@ def main() -> None:
     _check(bool(np.array_equal(q, top_vals)), "query != top_k values")
 
     t0 = time.perf_counter()
-    ref = numpy_reference(sess.hg.snapshot(block_size=BLOCK))
+    hg_ref = sess.hg                      # the graph phase 3's oracle is of
+    ref = numpy_reference(hg_ref.snapshot(block_size=BLOCK))
     r = sess.ranks
     err = float(np.abs(r[:sess.n] - ref[:sess.n]).max())
     mass = float(r[:sess.n].sum())
@@ -1215,9 +1564,15 @@ def main() -> None:
 
     # -- phase 7: the variant matrix, same graph ----------------------------
     var_launches = _variants_phase(bsk, hg, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the blocked engine, on phase 3's final graph --------------
+    blk_launches, sweep_row = _blocked_phase(bws, bsk, hg_ref, ref, smi)
     for row in table:
         row["launches"] = (launches[row["name"]] + push_launches[row["name"]]
-                           + var_launches[row["name"]])
+                           + var_launches[row["name"]]
+                           + blk_launches[row["name"]])
+    table.append(sweep_row)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in table]}))

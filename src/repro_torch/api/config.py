@@ -6,16 +6,19 @@ Same fields and the same construction-time validation as the JAX config.
 ``"pallas"``, or a ``REPRO_ENGINE`` override, validated eagerly).  Values
 that belong to later slices of the port raise ``NotImplementedError`` at
 construction, naming the ROADMAP item (queue A) that brings them; a config
-that constructs is one the port runs.  The ``driver="push"`` rules are
-checked before those refusals, so a push config the reference refuses for
-good gets the reference's ``ValueError``.
+that constructs is one the port runs.  The ``driver="push"`` rules and the
+``fault_domain=`` checks come before those refusals, so a config the
+reference refuses for good gets the reference's ``ValueError``.
+``fault_domain=`` takes a
+:class:`~repro_torch.core.fault_domain.ThreadFaultDomain` (the same as
+``faults=`` its plan); the other domains are later slices.
 
 Two fields mean less here than in the reference:
 
 * ``engine`` is ``"pallas"`` (the fused frontier engine, whose tile SpMV is
-  the hand-written CUDA kernel on the card) or ``"dense"`` (the oracle, BB
-  mode only until the blocked engine, ROADMAP item A 7, brings its LF
-  mode);
+  the hand-written CUDA kernel on the card), ``"blocked"`` (in-order
+  Gauss–Seidel sweeps on the hand-written sweep kernel) or ``"dense"`` (the
+  oracle; its LF mode is the blocked engine);
 * ``backend`` accepts only ``None``: the tensors' device picks the kernel
   (CUDA) or its plain version (CPU), and no setting can put the plain
   version on the card.
@@ -39,14 +42,13 @@ DURABILITIES = ("none", "wal")
 PARTITIONERS = ("contiguous", "hash", "bfs_blocks")
 # ROADMAP queue-A items that bring the values this slice rejects
 _LATER = {
-    "engine:blocked": "A 7 (blocked Gauss–Seidel engine)",
-    "engine:dense:lf": "A 7 (blocked Gauss–Seidel engine, which the dense "
-                       "engine's LF mode runs)",
     "engine:walk": "A 13 (walk engine / PPR)",
     "engine:distributed": "A 14 (sharded topology)",
     "topology:sharded": "A 14 (sharded topology)",
     "durability:wal": "A 9 (durability)",
-    "fault_domain": "A 9 (durability and fault domains)",
+    "fault_domain": "A 9 (durability and the process fault domain; the "
+                    "shard and corruption domains come with A 14 and "
+                    "A 11)",
     "integrity": "A 11 (integrity and chaos)",
     "walk": "A 13 (walk engine / PPR)",
     "device_budget_bytes": "A 10 (tiered storage)",
@@ -56,8 +58,9 @@ _LATER = {
 def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
-        "the port runs the untiered single-device session (pallas engine, "
-        "pull or push driver; dense engine in BB mode)")
+        "the port runs the untiered single-device session (pallas engine "
+        "with the pull or push driver; blocked and dense engines; the "
+        "thread fault domain)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,8 +160,6 @@ class EngineConfig:
                     "driver='push' does not support integrity=")
         if later_engine:
             raise _later(f"engine={self.engine!r}", f"engine:{self.engine}")
-        if eng_name == "dense" and self.mode != "bb":
-            raise _later("engine='dense' with mode='lf'", "engine:dense:lf")
         # -- topology axis ----------------------------------------------------
         if self.topology not in TOPOLOGIES:
             raise ValueError(f"topology={self.topology!r} invalid; "
@@ -176,6 +177,32 @@ class EngineConfig:
             raise ValueError(
                 "n_shards is only meaningful with topology='sharded' "
                 f"(got topology='single', n_shards={self.n_shards})")
+        # -- fault domains: the reference's checks come before the
+        # later-slice refusals, so a thread domain on a sharded topology
+        # gets the reference's ValueError
+        if self.fault_domain is not None:
+            from repro_torch.core.fault_domain import (FaultDomain,
+                                                       ThreadFaultDomain)
+            if not isinstance(self.fault_domain, FaultDomain):
+                raise ValueError(
+                    "fault_domain must be a repro_torch.core.fault_domain."
+                    "FaultDomain (ThreadFaultDomain), got "
+                    f"{type(self.fault_domain).__name__}")
+            if self.faults is not None:
+                raise ValueError(
+                    "faults= and fault_domain= are mutually exclusive — "
+                    "faults=plan is shorthand for "
+                    "fault_domain=ThreadFaultDomain(plan)")
+            self.fault_domain.validate_for(topology=self.topology)
+            if not isinstance(self.fault_domain, ThreadFaultDomain):
+                kind = type(self.fault_domain).__name__
+                raise _later(f"fault_domain={kind}", "fault_domain")
+            eng = registry.resolve(eng_name)
+            if self.fault_domain.name not in registry.fault_domains_of(eng):
+                raise ValueError(
+                    f"engine {eng.name!r} does not host the "
+                    f"{self.fault_domain.name!r} fault domain (declares "
+                    f"{registry.fault_domains_of(eng)})")
         if self.topology == "sharded":
             raise _later("topology='sharded'", "topology:sharded")
         # -- fault-domain / durability axis -----------------------------------
@@ -189,8 +216,6 @@ class EngineConfig:
             raise _later("durability='wal'", "durability:wal")
         if self.integrity is not None:
             raise _later("integrity=", "integrity")
-        if self.fault_domain is not None:
-            raise _later("fault_domain=", "fault_domain")
         # -- walk-engine / personalization axis -------------------------------
         for name, lo in (("walks_per_vertex", 1), ("walk_length", 2),
                          ("walk_seed", 0)):

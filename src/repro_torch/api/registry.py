@@ -2,12 +2,12 @@
 (ports ``src/repro/api/registry.py``).
 
 Each core engine module owns its adapter (``as_engine()`` in
-:mod:`repro_torch.core.pagerank` (dense) and
-:mod:`repro_torch.core.pallas_engine`); the registry imports and registers
-them lazily on first resolve, so the core modules stay import-cycle-free.
-External code can plug in more engines with :func:`register`.  The
-reference's ``blocked``, ``walk`` and ``distributed`` engines are not
-ported yet: ``EngineConfig`` refuses them, naming the ROADMAP item that
+:mod:`repro_torch.core.blocked`, :mod:`repro_torch.core.pagerank` (dense)
+and :mod:`repro_torch.core.pallas_engine`); the registry imports and
+registers them lazily on first resolve, so the core modules stay
+import-cycle-free.  External code can plug in more engines with
+:func:`register`.  The reference's ``walk`` and ``distributed`` engines are
+not ported yet: ``EngineConfig`` refuses them, naming the ROADMAP item that
 brings each.
 
 ``resolve(None)`` applies :func:`default_engine` and validates a
@@ -48,7 +48,8 @@ class CapabilityError(ValueError):
 
 
 _REGISTRY: Dict[str, Engine] = {}
-_BUILTINS = ("repro_torch.core.pagerank",        # dense
+_BUILTINS = ("repro_torch.core.blocked",         # blocked
+             "repro_torch.core.pagerank",        # dense
              "repro_torch.core.pallas_engine")   # pallas
 _builtins_loaded = False
 
@@ -88,10 +89,10 @@ def names() -> Tuple[str, ...]:
 def default_engine() -> str:
     """Engine used when a caller passes ``engine=None``: ``"pallas"``.  The
     reference picks pallas on the TPU (its fused production path) and the
-    blocked engine elsewhere; the port's counterpart of that path is the
-    pallas engine on the card, and the same engine runs its plain kernels
-    on the CPU.  A ``REPRO_ENGINE`` override is validated against the
-    registry here — eagerly, with the valid-name list."""
+    blocked engine elsewhere, a rule about its host; the port's counterpart
+    of that path is the pallas engine on the card, and the same engine runs
+    its plain kernels on the CPU.  A ``REPRO_ENGINE`` override is validated
+    against the registry here — eagerly, with the valid-name list."""
     env = os.environ.get("REPRO_ENGINE")
     if env:
         _ensure_builtins()

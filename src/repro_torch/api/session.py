@@ -32,10 +32,11 @@ Two modes, picked at construction:
   a residual beside the ranks and seeds it per batch on the host.  The
   ``dt`` marking (pull only) walks two throwaway snapshots per update, as
   the reference's does.
-* **snapshot mode** (``from_snapshot``, or the ``dense`` engine): the
-  session holds a :class:`~repro_torch.core.graph.GraphSnapshot` on its
-  device, rebuilds it per update (O(m) host work) and converges through
-  the engine adapter of :mod:`repro_torch.api.registry`.  The legacy
+* **snapshot mode** (``from_snapshot``, or the ``blocked`` and ``dense``
+  engines): the session holds a
+  :class:`~repro_torch.core.graph.GraphSnapshot` on its device, rebuilds it
+  per update (O(m) host work) and converges through the engine adapter of
+  :mod:`repro_torch.api.registry`.  The legacy
   ``static/nd/dt/df_pagerank`` functions of
   :mod:`repro_torch.core.pagerank` are shims over exactly this path.
 
@@ -57,6 +58,7 @@ import torch
 
 from repro_torch.api import registry
 from repro_torch.api.config import EngineConfig
+from repro_torch.core import fault_domain
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
 from repro_torch.core import pallas_engine as pe
@@ -69,7 +71,7 @@ from repro_torch.core.incremental import (IncrementalPullMatrix,
                                           effective_batch)
 from repro_torch.core.pagerank import PagerankResult
 from repro_torch.device import resolve_device
-from repro_torch.kernels.block_spmv import block_spmv as bsk
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.block_spmv import ops
 
 VARIANTS = ("static", "nd", "dt", "df")
@@ -218,7 +220,8 @@ class PageRankSession:
         self.hg = hg
         self.g: Optional[GraphSnapshot] = None
         self._dtype = config.resolved_dtype()
-        self._fault_plan = config.faults
+        self._fault_plan = fault_domain.resolve_thread_plan(
+            config.faults, config.fault_domain)
         self._stream = (self.engine_name == "pallas" and hg is not None
                         and g is None)
         # residual forward-push driver: a device-resident residual next to
@@ -480,7 +483,7 @@ class PageRankSession:
                 "iterate); use variant='df' or 'nd', or a driver='pull' "
                 "session")
         t0 = time.perf_counter()
-        builds0 = bsk.builds()
+        builds0 = nvcc.total_builds()
         dev, B = self.device, self.block_size
         self._snap_s = 0.0
         g_prev_snap = self._snapshot(self.hg) if variant == "dt" else None
@@ -534,7 +537,7 @@ class PageRankSession:
         self.R = R
         return StreamBatchResult(
             ranks=R, stats=stats, wall_time_s=time.perf_counter() - t0,
-            batch_edges=raw, driver_retraces=bsk.builds() - builds0,
+            batch_edges=raw, driver_retraces=nvcc.total_builds() - builds0,
             host_syncs=syncs + dt_syncs,
             residual_mass=None if extras is None else extras["residual_l1"],
             pushed_blocks=None if extras is None else extras["pushed_blocks"])
@@ -553,7 +556,7 @@ class PageRankSession:
         legacy path, kept for the oracle engines) and converge through the
         engine adapter."""
         t0 = time.perf_counter()
-        builds0 = bsk.builds()
+        builds0 = nvcc.total_builds()
         g_prev = self.g
         hg_new = self.hg.apply_batch(deletions, insertions)
         g_new = hg_new.snapshot(block_size=self.block_size,
@@ -584,7 +587,7 @@ class PageRankSession:
         return StreamBatchResult(
             ranks=res.ranks, stats=res.stats,
             wall_time_s=time.perf_counter() - t0, batch_edges=raw,
-            driver_retraces=bsk.builds() - builds0)
+            driver_retraces=nvcc.total_builds() - builds0)
 
     # -- updates -------------------------------------------------------------
     def update(self, deletions, insertions, *, variant: str = "df"

@@ -74,14 +74,20 @@ class GraphSnapshot:
                 self.dst[:self.m].cpu().numpy().astype(np.int64))
 
     @functools.cached_property
-    def in_deg(self) -> torch.Tensor:
-        """[n_pad] in-edge count per vertex (self-loops included): the
-        segment lengths of the dst-sorted real edges, found once per
-        snapshot by a binary search of the vertex starts (no scatter)."""
+    def in_ptr(self) -> torch.Tensor:
+        """[n_pad+1] i32: where each vertex's in-edges start in the
+        dst-sorted real edges (self-loops included), found once per snapshot
+        by a binary search of the vertex starts (no scatter)."""
         bounds = torch.arange(self.n_pad + 1, dtype=self.dst.dtype,
                               device=self.device)
-        ptr = torch.searchsorted(self.dst[:self.m].contiguous(), bounds)
-        return ptr[1:] - ptr[:-1]
+        return torch.searchsorted(self.dst[:self.m].contiguous(),
+                                  bounds).to(torch.int32)
+
+    @functools.cached_property
+    def in_deg(self) -> torch.Tensor:
+        """[n_pad] in-edge count per vertex (self-loops included): the
+        segment lengths of the dst-sorted real edges."""
+        return (self.in_ptr[1:] - self.in_ptr[:-1]).long()
 
     def block_in_edges(self) -> torch.Tensor:
         """[n_blocks] i32: in-edge count per dst-block (sweep work metric)."""

@@ -1,14 +1,17 @@
 """PageRank variants — Static / ND / DT / DF × BB / LF (ports
 ``src/repro/core/pagerank.py``).
 
-Two engines of the port back the variants (``repro_torch.api.registry``):
+Three engines of the port back the variants (``repro_torch.api.registry``):
 
-  * ``dense``  — full-SpMV Jacobi over every vertex (:func:`dense_jacobi`):
-                 oracle-grade, no kernel; BB mode only (its LF mode is the
-                 blocked Gauss–Seidel engine, ROADMAP item A 7);
-  * ``pallas`` — the fused frontier engine
-                 (:mod:`repro_torch.core.pallas_engine`) on the
-                 hand-written tile-SpMV kernels.
+  * ``dense``   — full-SpMV Jacobi over every vertex (:func:`dense_jacobi`):
+                  oracle-grade, no kernel; its LF mode is the blocked engine;
+  * ``blocked`` — in-order Gauss–Seidel sweeps over the active blocks
+                  (:mod:`repro_torch.core.blocked`, on the hand-written
+                  sweep kernel): the paper's lock-free semantics and the
+                  fault-model oracle;
+  * ``pallas``  — the fused frontier engine
+                  (:mod:`repro_torch.core.pallas_engine`) on the
+                  hand-written tile-SpMV kernels.
 
 Variant = (initial ranks, initial affected set, expand?) × (mode):
     Static : R0 = 1/n,      affected = all,              expand = off
@@ -31,6 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import blocked as blk
 from repro_torch.core import frontier as fr
 from repro_torch.core.blocked import SweepStats
 from repro_torch.core.graph import (GraphSnapshot, initial_ranks, pad_ranks,
@@ -274,8 +278,8 @@ def linf(a, b) -> float:
 
 class DenseEngine:
     """Registry adapter for the oracle-grade dense engine: masked full-SpMV
-    Jacobi in BB mode.  Its LF mode is the blocked engine (dense LF ==
-    blocked with every block active), which is not ported yet."""
+    Jacobi in BB mode; LF mode reuses the blocked engine (dense LF ==
+    blocked with every block active)."""
 
     name = "dense"
     fault_domains = ("thread",)
@@ -283,18 +287,20 @@ class DenseEngine:
     def run(self, g, R0, affected0, *, mode, expand, alpha, tau, tau_f,
             max_iterations, faults, tile, active_policy,
             mat=None, aux=None, backend=None, shards=None):
-        from repro_torch.api.config import _later
         from repro_torch.api.registry import (reject_shard_spec,
                                               reject_tile_operands)
         reject_tile_operands(self.name, mat, aux, backend)
         reject_shard_spec(self.name, shards)
-        if mode != "bb":
-            raise _later("engine='dense' with mode='lf'", "engine:dense:lf")
-        R, iters, conv = dense_jacobi(
-            g, R0, affected0, expand=expand, alpha=alpha, tau=tau,
-            tau_f=tau_f, max_iterations=max_iterations)
-        return R, SweepStats(sweeps=iters, iterations=iters, converged=conv,
-                             edges_processed=iters * g.m)
+        if mode == "bb":
+            R, iters, conv = dense_jacobi(
+                g, R0, affected0, expand=expand, alpha=alpha, tau=tau,
+                tau_f=tau_f, max_iterations=max_iterations)
+            return R, SweepStats(sweeps=iters, iterations=iters,
+                                 converged=conv, edges_processed=iters * g.m)
+        return blk.run_blocked(
+            g, R0, affected0, mode="lf", expand=expand, alpha=alpha,
+            tau=tau, tau_f=tau_f, max_iterations=max_iterations,
+            tile=tile, faults=faults, active_policy=active_policy)
 
 
 def as_engine() -> DenseEngine:

@@ -34,25 +34,18 @@ path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels import nvcc
 
 SEMIRINGS = ("sum", "or")
 _KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 MAX_BLOCK = 256
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "block_spmv.cu"
-_REPO_ROOT = Path(__file__).resolve().parents[4]
-BUILD_DIR = _REPO_ROOT / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -64,45 +57,7 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 # build + bind
 # ---------------------------------------------------------------------------
 
-class _Library:
-    """The built kernel library of this process (built or loaded once)."""
-    lib: Optional[ctypes.CDLL] = None
-    builds = 0                 # nvcc runs + loads made by this process
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError(
-        "nvcc not found: the CUDA tile-SpMV kernels are built from "
-        f"{_SRC} at first use and need the CUDA toolkit on PATH")
-
-
-def library() -> ctypes.CDLL:
-    """Build (at first use, keyed by a hash of the source) and load the
-    kernel library.  Raises if the build fails; never falls back."""
-    if _Library.lib is not None:
-        return _Library.lib
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libblock_spmv_{key}.so"
-    if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SRC}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)       # atomic: concurrent builders agree
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # (dtype, semiring, B, mt, n_list), [active_ids, n_active,] tile_idx,
     # tile_cols, the index's off, cnt, row, col, val, x, y, stream
@@ -112,14 +67,20 @@ def library() -> ctypes.CDLL:
     lib.block_spmv_active_launch.restype = i32
     lib.block_spmv_error_string.argtypes = [i32]
     lib.block_spmv_error_string.restype = ctypes.c_char_p
-    _Library.lib = lib
-    _Library.builds += 1
-    return lib
+
+
+_Library = nvcc.Library(_SRC, "block_spmv", _bind)
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use, keyed by a hash of the source) and load the
+    kernel library.  Raises if the build fails; never falls back."""
+    return _Library.load()
 
 
 def builds() -> int:
-    """Kernel-library builds/loads made by this process (the port's only
-    compile: 1 after the first CUDA launch, 0 on the CPU)."""
+    """Loads of this library made by this process (1 after the first CUDA
+    launch, 0 on the CPU)."""
     return _Library.builds
 
 

@@ -3,7 +3,8 @@ their plain PyTorch versions (reading the dense tiles), the index refresh on
 the card, a stream on the card against the same stream on the CPU (pull and
 push drivers), the push path's residual scatter, host syncs and masking
 of the kernel's undefined rows, and the variant matrix (dt, the replays,
-snapshot mode, the dense engine) on the card against the CPU.
+snapshot mode, the dense engine) on the card against the CPU, and the blocked
+engine's Gauss–Seidel sweep kernel against its plain version.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -415,3 +416,208 @@ def test_cuda_push_rows_outside_candidates_never_reach_r(cuda_device,
     assert clean_stats.sweeps > 0 and clean_stats == dirty_stats
     assert torch.equal(clean_p, dirty_p)
     assert torch.equal(clean_r, gpu._residual)
+
+
+# ---------------------------------------------------------------------------
+# the blocked engine's Gauss–Seidel sweep kernel
+# ---------------------------------------------------------------------------
+
+def _sweep_inputs(g, dtype, seed):
+    """Ranks near the fixed point with per-block perturbations from 0 up to
+    1e-8 (f64) or 1e-4 (f32) — some blocks change by less than τ_f, some by
+    more than τ_f but less than τ (the RC race), some by more than τ — a
+    random affected set, and a slot list with −1 padding and masked
+    slots."""
+    from repro_torch.core.pagerank import numpy_reference
+    rng = np.random.default_rng(seed)
+    n_pad, B, nb = g.n_pad, g.block_size, g.n_blocks
+    lo, hi = (-15, -8) if dtype == torch.float64 else (-10, -4)
+    scale = np.repeat(10.0 ** rng.uniform(lo, hi, nb), B)
+    scale[np.repeat(rng.random(nb) < 0.25, B)] = 0.0
+    R = numpy_reference(g, iterations=300) + scale * rng.standard_normal(n_pad)
+    aff = np.r_[rng.random(n_pad) < 0.5, False]
+    ids = np.full(nb + 5, -1, np.int32)
+    order = rng.permutation(nb)[:max(1, nb - 1)]
+    ids[:len(order)] = order
+    mask = rng.random(len(ids)) < 0.8
+    return (torch.from_numpy(R).to(dtype), torch.from_numpy(aff),
+            torch.from_numpy(ids), torch.from_numpy(mask))
+
+
+def _sweep_graphs():
+    from repro_torch.core.graph import HostGraph
+    from repro_torch.graphs.generators import kmer_chains, rmat
+    rng = np.random.default_rng(0)
+    er = HostGraph(500, rng.integers(0, 500, (3000, 2)))   # n < n_pad
+    return rmat(10, avg_degree=6, seed=2), kmer_chains(1 << 10, seed=4), er
+
+
+def _run_sweep(fn, sg, R, aff, ids, mask, g, *, jacobi, **kw):
+    R, aff = R.clone(), aff.clone()
+    rc = aff.clone()
+    read = R.clone() if jacobi else R
+    maxdr, edges = fn(sg, R, read, aff, rc, ids, mask, n=g.n, jacobi=jacobi,
+                      **kw)
+    return R, aff, rc, maxdr, edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [True, False])
+@pytest.mark.parametrize("mode", ["lf", "bb"])
+@pytest.mark.parametrize("tile", [64, 512])
+@pytest.mark.parametrize("t_dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("block", [64, 256])
+def test_cuda_blocked_sweep_matches_plain(cuda_device, block, t_dt, tile,
+                                          mode, expand):
+    """The kernel on the card against the plain version on the CPU (whose
+    sums run in the kernel's order): affected, RC (trash entry included)
+    and the per-slot edges array-equal, R and maxdr within the dtype's
+    tolerance; two launches bit-identical."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    tau = 1e-10 if t_dt == torch.float64 else 1e-7
+    kw = dict(alpha=0.85, tau=tau, tau_f=tau / 1000 if expand
+              else float("inf"), tile=tile, expand=expand,
+              jacobi=mode == "bb")
+    for i, hg in enumerate(_sweep_graphs()):
+        g = hg.snapshot(block_size=block, device="cpu")
+        gc = hg.snapshot(block_size=block, device=cuda_device)
+        R, aff, ids, mask = _sweep_inputs(g, t_dt, seed=block + tile + i)
+        sg, sgc = blk.sweep_graph(g, t_dt), blk.sweep_graph(gc, t_dt)
+        plain = _run_sweep(bws.blocked_sweep_plain, sg, R, aff, ids, mask, g,
+                           **kw)
+        dev = [t.to(cuda_device) for t in (R, aff, ids, mask)]
+        launches = bws.blocked_sweep_cuda.launches
+        runs = [_run_sweep(bws.blocked_sweep_cuda, sgc, *dev, gc, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert bws.blocked_sweep_cuda.launches == launches + 2
+        for a, b in zip(runs[0], runs[1]):
+            assert torch.equal(a, b)
+        Rk, affk, rck, mk, ek = (t.cpu() for t in runs[0])
+        Rp, affp, rcp, mp, ep = plain
+        assert torch.equal(affk, affp) and torch.equal(rck, rcp)
+        assert torch.equal(ek, ep)
+        torch.testing.assert_close(Rk, Rp, rtol=0, atol=TOLS[t_dt])
+        torch.testing.assert_close(mk, mp, rtol=0, atol=TOLS[t_dt])
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_sweep_refuses_bad_operands(cuda_device):
+    """A BB sweep reading the R it writes, a dtype with no kernel, and an
+    operand on another device all raise before any launch."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    g = _sweep_graphs()[0].snapshot(block_size=64, device=cuda_device)
+    R, aff, ids, mask = (t.to(cuda_device) for t in
+                         _sweep_inputs(g, torch.float64, seed=1))
+    sg = blk.sweep_graph(g, torch.float64)
+    kw = dict(n=g.n, alpha=0.85, tau=1e-10, tau_f=1e-13, tile=512,
+              expand=True)
+    launches = bws.blocked_sweep_cuda.launches
+    with pytest.raises(ValueError, match="copy of R"):
+        bws.blocked_sweep_cuda(sg, R, R, aff, aff.clone(), ids, mask,
+                               jacobi=True, **kw)
+    Rh = R.to(torch.float16)
+    with pytest.raises(ValueError, match="unsupported"):
+        bws.blocked_sweep_cuda(blk.sweep_graph(g, torch.float16), Rh, Rh,
+                               aff, aff.clone(), ids, mask, jacobi=False,
+                               **kw)
+    with pytest.raises(ValueError, match="device"):
+        bws.blocked_sweep_cuda(sg, R, R, aff, aff.clone(), ids.cpu(), mask,
+                               jacobi=False, **kw)
+    assert bws.blocked_sweep_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,faults", [
+    ("lf", None), ("bb", None),
+    ("lf", dict(n_threads=8, n_crashed=6, crash_window=4, seed=3)),
+    ("lf", dict(n_threads=8, delay_prob=0.4, delay_ms=100, seed=5)),
+    ("bb", dict(n_threads=8, n_crashed=1, crash_window=1, seed=3))])
+@pytest.mark.parametrize("policy", ["affected", "rc"])
+def test_cuda_run_blocked_matches_cpu(cuda_device, mode, faults, policy):
+    """A DF run of the blocked engine on the card (the sweep kernel) and on
+    the CPU (its plain version): every counter equal, ranks within 1e-12."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.core import frontier as fr
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.pagerank import numpy_reference
+    from repro_torch.graphs.generators import grid_road
+    hg0 = grid_road(48, seed=7)
+    dels, ins = random_batch(hg0, 1e-3, seed=2, deletions_frac=0.2)
+    out = []
+    for dev in ("cpu", cuda_device):
+        g0 = hg0.snapshot(block_size=64, device=dev)
+        g1 = hg0.apply_batch(dels, ins).snapshot(block_size=64, device=dev)
+        aff = fr.initial_affected(g0, g1, fr.batch_to_device(g1, dels, ins))
+        r_prev = torch.from_numpy(numpy_reference(g0, iterations=300))
+        out.append(blk.run_blocked(
+            g1, r_prev, aff, mode=mode, active_policy=policy, tau=1e-10,
+            faults=FaultPlan(**faults) if faults else None))
+    (rc_, sc), (rg, sg) = out
+    assert sc == sg
+    assert sg.sweeps > 0 or sg.dnf
+    assert float((rg.cpu() - rc_).abs().max()) <= TOLS[torch.float64]
+
+
+@pytest.mark.cuda
+def test_cuda_tau_alpha_sweep_builds_no_new_kernel(cuda_device):
+    """α/τ/τ_f are kernel arguments: after the first launch a
+    hyperparameter sweep builds nothing (twin of
+    tests/test_blocked_cache.py::test_tau_alpha_sweep_hits_one_cache_entry)."""
+    import warnings
+    from repro_torch.core import frontier as fr
+    from repro_torch.core import pagerank as pr
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    hg = rmat(9, avg_degree=6, seed=2)
+    g = hg.snapshot(block_size=64, device=cuda_device)
+    r0 = pr.numpy_reference(g, iterations=200)
+    dels, ins = random_batch(hg, 5e-3, seed=4)
+    g1 = hg.apply_batch(dels, ins).snapshot(block_size=64,
+                                            device=cuda_device)
+    batch = fr.batch_to_device(g1, dels, ins)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        pr.df_pagerank(g, g1, batch, r0, mode="lf", engine="blocked",
+                       tau=1e-8)
+        before = bws._Library.builds
+        assert before == 1
+        for tau in (1e-9, 1e-10, 3e-10):
+            for alpha in (0.85, 0.9):
+                res = pr.df_pagerank(g, g1, batch, r0, mode="lf",
+                                     engine="blocked", tau=tau, alpha=alpha)
+                assert res.converged
+    assert bws._Library.builds == before
+
+
+@pytest.mark.cuda
+def test_cuda_thread_domain_session_equals_faults(cuda_device):
+    """A snapshot-mode blocked session on the card: fault_domain=
+    ThreadFaultDomain(plan) and faults=plan give bit-identical ranks, and
+    the faulted run's counters equal the CPU session's."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.fault_domain import ThreadFaultDomain
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.graphs.generators import kmer_chains
+    hg = kmer_chains(1 << 10, seed=4)
+    plan = FaultPlan(n_threads=8, n_crashed=2, crash_window=4, seed=5)
+    dels, ins = random_batch(hg, 5e-3, seed=7)
+    res = {}
+    for name, dev, kw in (("faults", cuda_device, dict(faults=plan)),
+                          ("domain", cuda_device,
+                           dict(fault_domain=ThreadFaultDomain(plan))),
+                          ("cpu", "cpu", dict(faults=plan))):
+        sess = PageRankSession.from_graph(hg, config=EngineConfig(
+            engine="blocked", block_size=64, **kw), device=dev)
+        res[name] = (sess.update(dels, ins), sess.R.cpu())
+    assert torch.equal(res["faults"][1], res["domain"][1])
+    assert res["faults"][0].stats == res["cpu"][0].stats
+    assert res["faults"][0].converged
+    assert float((res["faults"][1] - res["cpu"][1]).abs().max()) <= \
+        TOLS[torch.float64]

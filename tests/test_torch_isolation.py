@@ -21,7 +21,10 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
     for m in ("repro_torch.api.session", "repro_torch.api.registry",
-              "repro_torch.core.properties", "repro_torch.core.pagerank"):
+              "repro_torch.core.properties", "repro_torch.core.pagerank",
+              "repro_torch.core.blocked", "repro_torch.core.fault_domain",
+              "repro_torch.kernels.nvcc",
+              "repro_torch.kernels.blocked_sweep.blocked_sweep"):
         assert m in mods
     code = (
         "import importlib, sys\n"

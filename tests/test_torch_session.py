@@ -23,6 +23,7 @@ from repro_torch.api.config import EngineConfig as TConfig
 from repro_torch.api.session import PageRankSession as TSession
 from repro_torch.convert import block_sparse_from_numpy, session_from_numpy
 from repro_torch.core import frontier as tfr
+from repro_torch.core.fault_domain import FaultDomain
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.graph import HostGraph as THostGraph
 from repro_torch.core.pagerank import numpy_reference
@@ -171,6 +172,12 @@ def test_session_from_numpy_round_trips():
         ts.top_k(1)
 
 
+class _ProcessDomain(FaultDomain):
+    """A fault domain other than the thread domain (the process domain is
+    ROADMAP item A 9)."""
+    name = "process"
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"device_budget_bytes": 1 << 20}, "A 10"),
     ({"topology": "sharded"}, "A 14"),
@@ -179,9 +186,11 @@ def test_session_from_numpy_round_trips():
     ({"walk_seed": 1}, "A 13"),
     ({"durability": "wal"}, "A 9"),
     ({"integrity": {"mass_tol": 1e-6}}, "A 11"),
-    ({"fault_domain": object()}, "A 9"),
-    ({"engine": "blocked"}, "A 7"),
-    ({"engine": "dense"}, "A 7"),        # the dense engine's LF mode
+    ({"fault_domain": _ProcessDomain()}, "A 9"),
+    # the blocked engine and the dense engine's LF mode run since A 7; the
+    # later axes still refuse on them
+    ({"engine": "blocked", "device_budget_bytes": 1 << 20}, "A 10"),
+    ({"engine": "dense", "fault_domain": _ProcessDomain()}, "A 9"),
     ({"engine": "walk"}, "A 13"),
     ({"engine": "distributed"}, "A 14"),
 ])
@@ -209,16 +218,16 @@ def test_config_validation_and_backend_rule():
 
 def test_dt_variant_raises_not_implemented():
     """A pull ``update(variant="dt")`` raised ``NotImplementedError`` until
-    the port had the DT marking.  It runs now (its parity with the JAX
-    session is in tests/test_torch_variants.py); what still raises
-    ``NotImplementedError`` on this axis is the dense engine's LF mode,
-    which the blocked engine (A 7) brings."""
-    ts = TSession.from_graph(THostGraph(16, np.array([[0, 1], [1, 2]])),
-                             config=TConfig(block_size=8), device="cpu")
-    res = ts.update(np.zeros((0, 2)), np.array([[0, 5]]), variant="dt")
-    assert res.converged and ts.hg.has_edges(np.array([[0, 5]])).all()
-    with pytest.raises(NotImplementedError, match="A 7"):
-        TConfig(engine="dense", mode="lf")
+    the port had the DT marking, and the dense engine's LF mode until the
+    blocked engine (A 7).  Both run now (their parity with the JAX package
+    is in tests/test_torch_variants.py and tests/test_torch_blocked.py)."""
+    hg = THostGraph(16, np.array([[0, 1], [1, 2]]))
+    for cfg in (TConfig(block_size=8), TConfig(block_size=8, engine="dense",
+                                               mode="lf")):
+        ts = TSession.from_graph(hg, config=cfg, device="cpu")
+        res = ts.update(np.zeros((0, 2)), np.array([[0, 5]]), variant="dt")
+        assert res.converged and ts.hg.has_edges(np.array([[0, 5]])).all()
+    assert ts.engine_name == "dense" and not ts._stream
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -114,7 +114,7 @@ class TestRegistry:
     def test_unknown_engine_error_lists_registered(self):
         with pytest.raises(ValueError, match="dense.*pallas"):
             registry.resolve("not-an-engine")
-        assert registry.names() == ("dense", "pallas")
+        assert registry.names() == ("blocked", "dense", "pallas")
         assert registry.default_engine() == "pallas"
         assert registry.resolve(None).name == "pallas"
 
@@ -163,7 +163,7 @@ class TestRegistry:
                     active_policy="affected", shards=object())
 
     def test_capabilities_and_fault_domains(self):
-        for name in ("dense", "pallas"):
+        for name in ("blocked", "dense", "pallas"):
             eng = registry.resolve(name)
             assert registry.supports_of(eng) == frozenset()
             assert registry.fault_domains_of(eng) == ("thread",)
@@ -181,13 +181,16 @@ class TestEngineConfig:
         monkeypatch.setenv("REPRO_ENGINE", "dense")
         assert TConfig(mode="bb").resolved_engine == "dense"
         assert tpr.default_engine() == "dense"
-        # the dense engine's LF mode is the blocked engine (A 7)
-        with pytest.raises(NotImplementedError, match="A 7"):
-            TConfig()
+        # the dense engine's LF mode (the default mode) runs the blocked
+        # engine
+        assert TConfig().resolved_engine == "dense"
+        assert TConfig().mode == "lf"
 
     @pytest.mark.parametrize("kw,err,match", [
-        ({"engine": "dense", "mode": "lf"}, NotImplementedError, "A 7"),
-        ({"engine": "blocked", "mode": "bb"}, NotImplementedError, "A 7"),
+        ({"engine": "dense", "mode": "lf", "device_budget_bytes": 1 << 20},
+         NotImplementedError, "A 10"),
+        ({"engine": "blocked", "mode": "lf", "driver": "push"}, ValueError,
+         "pallas"),
         ({"engine": "dense", "mode": "bb", "driver": "push"}, ValueError,
          "pallas"),
         ({"engine": "not-an-engine"}, ValueError, "registered engines"),
@@ -287,8 +290,10 @@ class TestDeprecationShims:
             _legacy(tpr, dyn, "nd", "t", taux=1.0)
         with pytest.raises(ValueError, match="backend"):
             _legacy(tpr, dyn, "nd", "t", pallas_backend="xla")
-        with pytest.raises(NotImplementedError, match="A 7"):
-            _legacy(tpr, dyn, "df", "t", engine="dense")    # mode="lf"
+        # the dense engine's default mode, LF, is the blocked engine
+        dense = _legacy(tpr, dyn, "df", "t", engine="dense")
+        blocked = _legacy(tpr, dyn, "df", "t", engine="blocked")
+        assert dense.converged and torch.equal(dense.ranks, blocked.ranks)
 
 
 # ---------------------------------------------------------------------------
