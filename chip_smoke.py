@@ -76,11 +76,29 @@ Phases, each of which raises (non-zero exit) on any failed check:
    time.  Then the sweep kernel against its plain
    version (LF and BB, on the card) over all 16,384 slots of a cold start
    and over the compacted DF frontier of the first batch, timed beside its
-   bound.
+   bound;
+9. durability on phase 3's graph and batches, with the launch counters
+   zeroed just before the restore and read at the end: a child process
+   (``chip_smoke.py --durable-child DIR``) opens phase 3's session durable
+   (``checkpoint_interval=3``), warms up, takes the first 4 df batches and
+   is SIGKILLed; ``PageRankSession.restore`` (checkpoint 3 + 1 WAL batch)
+   must equal phase 3's ranks after update 4 bit for bit, launch
+   ``block_spmv_active`` in the replay, stream batches 5–8 to phase 3's
+   ranks after update 8 bit for bit and build no kernel; a ``fork`` given
+   phase 3's nd batch equals phase 3 bit for bit while the parent stays as
+   it was (and then equals the fork given the same batch); the store
+   reopened without durability (the parent's nd update was batch 9, so
+   checkpoint 9) equals phase 3's nd update bit for bit, and a ``save`` of
+   that non-durable session restores bit for bit.  It prints the durable open,
+   the WAL's cost per record (a durable ``update()`` minus its step, in ms,
+   and the record's bytes), the durable df p50 beside
+   phase 3's, the checkpoint's bytes and seconds, the restore's
+   ``recovery_time_s`` and ``replayed_batches``, and the fork's ms and
+   device-memory delta.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
-push path's (phase 6), the variant matrix's (phase 7) and the blocked
-path's (phase 8).  Prints the
+push path's (phase 6), the variant matrix's (phase 7), the blocked
+path's (phase 8) and the durable path's (phase 9).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -91,8 +109,13 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
+import queue
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1408,6 +1431,246 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: durability on the main path's graph
+# ---------------------------------------------------------------------------
+
+STORE_ROOT = ROOT / "build" / "chip_smoke_store"
+N_CHILD_UPDATES = 4              # the child is killed after this many
+CHILD_CKPT_INTERVAL = 3          # so it dies on checkpoint 3 + 1 WAL batch
+
+
+def _durable_child(store_dir: str) -> None:
+    """``chip_smoke.py --durable-child DIR``: phase 3's session, made
+    durable (``checkpoint_interval=3``, store ``DIR``): the same graph, cold
+    solve, ``warmup()`` and first four df batches; then it prints READY and
+    waits for the parent's SIGKILL."""
+    if not torch.cuda.is_available():
+        _fail("no CUDA device is visible; the durable child needs one")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import grid_road
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hg = grid_road(SIDE, seed=7)
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU,
+                       durability="wal",
+                       checkpoint_interval=CHILD_CKPT_INTERVAL)
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda",
+                                      store_dir=store_dir)
+    torch.cuda.synchronize()
+    print(f"durable open + cold solve + checkpoint 0: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    sess.warmup()
+    for i in range(N_CHILD_UPDATES):
+        dels, ins = random_batch(sess.hg, 1e-4, seed=100 + i,
+                                 deletions_frac=0.2)
+        t0 = time.perf_counter()
+        res = sess.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        ckpt = (i + 1) % CHILD_CKPT_INTERVAL == 0
+        print(f"durable df update {i + 1}: update() {call_ms:.2f} ms"
+              f"{' with its checkpoint' if ckpt else ''}, of which the "
+              f"step {res.wall_time_s * 1e3:.2f} ms", flush=True)
+    print("READY", flush=True)
+    time.sleep(900)                      # the parent SIGKILLs it here
+
+
+def _run_child(store_dir: Path, smi: str) -> None:
+    """Start the durable child, echo its lines until READY, SIGKILL it.  A
+    child that exits, or does not print READY within 600 s, fails the run
+    with the end of its stderr.  A thread reads the child's stdout line by
+    line into a queue: ``select`` on the pipe would miss READY whenever it
+    arrives in one read with the line before it and so waits in the text
+    buffer, not in the pipe."""
+    with open(STORE_ROOT / "child-stderr.log", "w+") as err:
+        child = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--durable-child",
+             str(store_dir)], stdout=subprocess.PIPE, stderr=err, text=True)
+        lines: queue.Queue = queue.Queue()
+
+        def pump() -> None:
+            for line in child.stdout:
+                lines.put(line)
+            lines.put(None)                             # EOF
+
+        threading.Thread(target=pump, daemon=True).start()
+        try:
+            deadline = time.time() + 600
+            while True:
+                left = deadline - time.time()
+                if left <= 0:
+                    err.seek(0)
+                    raise AssertionError(
+                        "the durable child never became READY: "
+                        f"{err.read()[-4000:]}")
+                try:
+                    line = lines.get(timeout=min(left, 5.0))
+                except queue.Empty:
+                    continue
+                if line is None:
+                    child.wait(timeout=60)
+                    err.seek(0)
+                    raise AssertionError(
+                        f"the durable child died early (rc "
+                        f"{child.returncode}): {err.read()[-4000:]}")
+                if line.strip() == "READY":
+                    break
+                print(f"child: {line.rstrip()} [{smi}]", flush=True)
+            os.kill(child.pid, signal.SIGKILL)       # crash-stop, no cleanup
+            child.wait(timeout=60)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=60)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _durable_phase(bsk, batches, nd_batch, kept: dict, r_nd, df_p50_ms,
+                   smi: str) -> dict:
+    """Phase 9: a SIGKILLed durable child of phase 3's session restores bit
+    for bit and streams on; ``save``/``restore`` of a non-durable session
+    and a ``fork`` hold bit for bit too.  ``kept`` holds phase 3's host
+    ranks after its 4th and 8th df updates, ``r_nd`` after its nd update.
+    Returns the path's launch counts."""
+    from repro_torch.api.session import PageRankSession
+    t_phase = time.perf_counter()
+    shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    STORE_ROOT.mkdir(parents=True)
+    store_dir = STORE_ROOT / "durable"
+    _run_child(store_dir, smi)
+
+    # -- the path: launch counters zeroed just before, read just after -----
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    t0 = time.perf_counter()
+    rest = PageRankSession.restore(str(store_dir), device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    replay_active = bsk.block_spmv_active_cuda.launches
+    rep = rest.report()
+    n = rest.n
+    print(f"restore: {t_restore:.3f} s wall, recovery_time_s "
+          f"{rep.recovery_time_s:.3f}, replayed_batches "
+          f"{rep.replayed_batches} ({rep.recovery_events[0]['description']});"
+          f" block_spmv_active launches in the replay {replay_active} "
+          f"[{smi}]", flush=True)
+    _check(rep.recoveries == 1 and rep.recovery_events[0]["domain"]
+           == "process", "restore recorded no process-domain recovery")
+    _check(rep.replayed_batches
+           == N_CHILD_UPDATES % CHILD_CKPT_INTERVAL,
+           f"restore replayed {rep.replayed_batches} batches")
+    _check(replay_active > 0, "the WAL replay launched no block_spmv_active")
+    _check(bool(np.array_equal(rest.ranks[:n], kept[N_CHILD_UPDATES][:n])),
+           "the restored ranks differ from phase 3's after update "
+           f"{N_CHILD_UPDATES}")
+    calls, walls, wal_ms, wal_bytes = [], [], [], []
+    for b, (dels, ins) in enumerate(batches[N_CHILD_UPDATES:],
+                                    start=N_CHILD_UPDATES + 1):
+        size0 = rest.store.wal_size()
+        t0 = time.perf_counter()
+        res = rest.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+        _check(res.converged, "a durable update did not converge")
+        walls.append(res.wall_time_s * 1e3)
+        if b % CHILD_CKPT_INTERVAL:      # a checkpoint compacts the WAL
+            wal_ms.append(calls[-1] - walls[-1])
+            wal_bytes.append(rest.store.wal_size() - size0)
+    _check(bool(np.array_equal(rest.ranks[:n], kept[N_DF_UPDATES][:n])),
+           "the restored stream differs from phase 3's after update "
+           f"{N_DF_UPDATES}")
+    _check(rest.report().retraces_post_warmup == 0,
+           "a kernel was built after the restore")
+    print(f"durable df updates {N_CHILD_UPDATES + 1}-{N_DF_UPDATES} after "
+          f"the restore (one with its checkpoint): update() "
+          f"{', '.join(f'{w:.2f}' for w in calls)} ms, p50 "
+          f"{np.percentile(calls, 50):.2f} ms (WAL and checkpoint "
+          f"included); the step alone p50 {np.percentile(walls, 50):.2f} ms"
+          f" beside phase 3's df p50 {df_p50_ms:.2f} ms; bit-identical to "
+          f"phase 3 after updates {N_CHILD_UPDATES} and {N_DF_UPDATES} "
+          f"[{smi}]", flush=True)
+    print(f"WAL per record (update() minus its step: validation, append "
+          f"and fsync; the batches without a checkpoint): {', '.join(f'{w:.3f}' for w in wal_ms)} ms, p50 "
+          f"{np.percentile(wal_ms, 50):.3f} ms; records of "
+          f"{min(wal_bytes)}-{max(wal_bytes)} bytes [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    path = rest.save()
+    t_ckpt = time.perf_counter() - t0
+    print(f"checkpoint (save into the attached store): {_dir_bytes(path)} "
+          f"bytes in {t_ckpt:.3f} s [{smi}]", flush=True)
+
+    # -- fork: the parent stays, the branch equals phase 3 on the same batch
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    twin = rest.fork()
+    torch.cuda.synchronize()
+    fork_ms = (time.perf_counter() - t0) * 1e3
+    fork_bytes = torch.cuda.memory_allocated() - mem0
+    _check(twin.store is None, "the fork kept the parent's store")
+    twin.update(*nd_batch, variant="nd")
+    torch.cuda.synchronize()
+    _check(bool(np.array_equal(rest.ranks[:n], kept[N_DF_UPDATES][:n])),
+           "the fork's update changed the parent")
+    _check(bool(np.array_equal(twin.ranks[:n], r_nd[:n])),
+           "the fork's nd update differs from phase 3's")
+    rest.update(*nd_batch, variant="nd")
+    _check(bool(np.array_equal(rest.ranks[:n], twin.ranks[:n])),
+           "the parent given the fork's batch differs from the fork")
+    print(f"fork: {fork_ms:.2f} ms, +{fork_bytes / 1e9:.3f} GB of device "
+          f"memory; after the same nd batch fork == parent == phase 3 bit "
+          f"for bit [{smi}]", flush=True)
+    plain_cfg = rest.config.replace(durability="none")
+    rest.close()
+    twin.close()
+    del twin, rest
+    torch.cuda.empty_cache()
+
+    # -- save/restore of a non-durable session -----------------------------
+    # the store reopened without durability (the parent's nd update was
+    # batch 9, a checkpoint of the cadence)
+    plain = PageRankSession.restore(str(store_dir), config=plain_cfg,
+                                    device="cuda")
+    _check(plain.store is None and plain._batch_index == N_DF_UPDATES + 1,
+           "the non-durable reopen attached a store or lost a batch")
+    _check(bool(np.array_equal(plain.ranks[:n], r_nd[:n])),
+           "the reopened store differs from phase 3's nd update")
+    saved = str(STORE_ROOT / "saved")
+    t0 = time.perf_counter()
+    plain.save(saved)
+    t_save = time.perf_counter() - t0
+    plain.close()
+    del plain
+    torch.cuda.empty_cache()
+    back = PageRankSession.restore(saved, device="cuda")
+    torch.cuda.synchronize()
+    _check(back.config.durability == "none" and back.store is None,
+           "the restored save is durable")
+    _check(bool(np.array_equal(back.ranks[:n], r_nd[:n])),
+           "save/restore of a non-durable session is not bit-identical")
+    print(f"save of a non-durable session: {_dir_bytes(saved)} bytes in "
+          f"{t_save:.3f} s; its restore "
+          f"{back.report().recovery_time_s:.3f} s, bit-identical [{smi}]",
+          flush=True)
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches,
+                "blocked_sweep": 0}
+    back.close()
+    torch.cuda.empty_cache()
+    shutil.rmtree(STORE_ROOT, ignore_errors=True)
+    print(f"launches on the durable path: {launches}; phase 9 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1473,7 +1736,7 @@ def main() -> None:
           f"({mat.index.tail} entries of {mat.index.entry_capacity}); "
           f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
     sess.warmup()
-    df, growth, batches = [], [], []
+    df, growth, batches, kept = [], [], [], {}
     for i in range(N_DF_UPDATES):
         dels, ins = random_batch(sess.hg, 1e-4, seed=100 + i,
                                  deletions_frac=0.2)
@@ -1486,6 +1749,8 @@ def main() -> None:
         if idx.entry_capacity == e_cap0 and idx.tail > tail0:
             growth.append(idx.tail - tail0)         # not a compaction
         df.append(res)
+        if i + 1 in (N_CHILD_UPDATES, N_DF_UPDATES):   # for phase 9
+            kept[i + 1] = sess.ranks
         print(f"df update {i}: {len(dels)} del + {len(ins)} ins, "
               f"{res.wall_time_s * 1e3:.2f} ms, sweeps {res.stats.sweeps}, "
               f"blocks {res.stats.blocks_processed}, edges "
@@ -1568,12 +1833,18 @@ def main() -> None:
 
     # -- phase 8: the blocked engine, on phase 3's final graph --------------
     blk_launches, sweep_row = _blocked_phase(bws, bsk, hg_ref, ref, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 9: durability, on phase 3's graph and batches ----------------
+    dur_launches = _durable_phase(bsk, batches, nd_batch, kept, r,
+                                  float(np.percentile(walls, 50)), smi)
     for row in table:
         row["launches"] = (launches[row["name"]] + push_launches[row["name"]]
                            + var_launches[row["name"]]
-                           + blk_launches[row["name"]])
+                           + blk_launches[row["name"]]
+                           + dur_launches[row["name"]])
     table.append(sweep_row)
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in table]}))
     print(json.dumps({"ok": True, "device": {
@@ -1582,4 +1853,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
+        _durable_child(sys.argv[2])
+    elif len(sys.argv) == 1:
+        main()
+    else:
+        _fail("usage: python3 chip_smoke.py (the internal child mode is "
+              "--durable-child DIR)")

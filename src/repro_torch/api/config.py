@@ -11,7 +11,10 @@ that constructs is one the port runs.  The ``driver="push"`` rules and the
 reference refuses for good gets the reference's ``ValueError``.
 ``fault_domain=`` takes a
 :class:`~repro_torch.core.fault_domain.ThreadFaultDomain` (the same as
-``faults=`` its plan); the other domains are later slices.
+``faults=`` its plan).  The process domain comes from ``durability="wal"``
+with a session's ``store_dir=``; a ``ProcessFaultDomain`` given as
+``fault_domain=`` gets the reference's ``ValueError``.  The shard and
+corruption domains are later slices.
 
 Two fields mean less here than in the reference:
 
@@ -45,10 +48,8 @@ _LATER = {
     "engine:walk": "A 13 (walk engine / PPR)",
     "engine:distributed": "A 14 (sharded topology)",
     "topology:sharded": "A 14 (sharded topology)",
-    "durability:wal": "A 9 (durability)",
-    "fault_domain": "A 9 (durability and the process fault domain; the "
-                    "shard and corruption domains come with A 14 and "
-                    "A 11)",
+    "fault_domain": "A 11 (integrity and the corruption domain) or A 14 "
+                    "(sharded topology and the shard domain)",
     "integrity": "A 11 (integrity and chaos)",
     "walk": "A 13 (walk engine / PPR)",
     "device_budget_bytes": "A 10 (tiered storage)",
@@ -60,7 +61,7 @@ def _later(what: str, key: str) -> NotImplementedError:
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
         "the port runs the untiered single-device session (pallas engine "
         "with the pull or push driver; blocked and dense engines; the "
-        "thread fault domain)")
+        "thread and process fault domains)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,8 +213,6 @@ class EngineConfig:
         if int(self.checkpoint_interval) <= 0:
             raise ValueError(f"checkpoint_interval={self.checkpoint_interval}"
                              " must be > 0")
-        if self.durability == "wal":
-            raise _later("durability='wal'", "durability:wal")
         if self.integrity is not None:
             raise _later("integrity=", "integrity")
         # -- walk-engine / personalization axis -------------------------------

@@ -121,8 +121,8 @@ def resolve(name: Optional[str] = None) -> Engine:
 def fault_domains_of(engine: Engine) -> Tuple[str, ...]:
     """Fault domains an engine can host (a ``fault_domains`` class
     attribute; adapters predating it default to thread+process).  The
-    port's builtin engines declare ``"thread"`` only: the process and
-    corruption domains come with ROADMAP items A 9 and A 11."""
+    port's builtin engines declare ``("thread", "process")``; the pallas
+    engine's ``"corruption"`` comes with ROADMAP item A 11."""
     return tuple(getattr(engine, "fault_domains", ("thread", "process")))
 
 

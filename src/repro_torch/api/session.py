@@ -7,7 +7,8 @@ Ports the untiered, single-device stream and snapshot modes of
 ``_seed_push``, ``_update_stream``, ``_update_snapshot``, ``update`` (all
 four variants), ``recompute`` (``static``/``nd``, and the ``df``/``dt``
 replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
-``close`` and ``report``::
+``close`` and ``report``, and the durability of the process fault domain:
+``save``, ``restore``, ``fork`` and ``device_footprint``::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -20,6 +21,11 @@ replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
     push = PageRankSession.from_graph(
         hg, config=EngineConfig(tau=1e-10, driver="push"))
     push.update(dels, ins)          # residual seed + forward push
+
+    durable = PageRankSession.from_graph(
+        hg, config=EngineConfig(durability="wal"), store_dir="store/")
+    durable.update(dels, ins)       # WAL append (fsync'd), then the step
+    again = PageRankSession.restore("store/")   # checkpoint + WAL replay
 
 Two modes, picked at construction:
 
@@ -45,10 +51,22 @@ pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
 *before* the tile scatter and index refresh, on the same stream, and its
 pass over G^t after them (the JAX session keeps both pools and runs both
 passes after the scatter).  The marking is the same.
+
+Durability follows the reference (``EngineConfig(durability="wal")`` with
+``store_dir=``): each batch is validated, appended to the store's WAL and
+only then applied; a failure inside the apply truncates its record away;
+every ``checkpoint_interval`` batches, and after a ``recompute``, the ranks
+and the edge set are checkpointed.  ``restore`` rebuilds the session from
+the newest valid checkpoint (a fresh pool and packed index from the stored
+edges, the stored ranks as ``r0``: no solve) and replays the WAL through
+``update``.  ``fork`` cannot share the pool as the reference's immutable
+arrays do, because the port patches it in place: a fork copies every device
+tensor a later update writes.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import List, Optional, Sequence, Tuple, Union
@@ -58,6 +76,7 @@ import torch
 
 from repro_torch.api import registry
 from repro_torch.api.config import EngineConfig
+from repro_torch.ckpt.checkpoint import SessionStore
 from repro_torch.core import fault_domain
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
@@ -68,9 +87,9 @@ from repro_torch.core.delta import signed_edge_delta, validate_edge_batch
 from repro_torch.core.graph import (GraphSnapshot, HostGraph,
                                     initial_ranks, pad_ranks)
 from repro_torch.core.incremental import (IncrementalPullMatrix,
-                                          effective_batch)
+                                          MatrixAux, effective_batch)
 from repro_torch.core.pagerank import PagerankResult
-from repro_torch.device import resolve_device
+from repro_torch.device import as_torch_dtype, resolve_device
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.block_spmv import ops
 
@@ -182,7 +201,12 @@ class SessionReport:
     batches_converged: int = 0
     sweep_cap_hits: int = 0
     topology: str = "single"
+    # -- fault domains / durability ------------------------------------------
     durability: str = "none"
+    recoveries: int = 0                       # completed, any domain
+    recovery_time_s: float = 0.0              # summed detection→recovered
+    replayed_batches: int = 0                 # WAL batches replayed (process)
+    recovery_events: List[dict] = dataclasses.field(default_factory=list)
     device_bytes: Optional[dict] = None
     bytes_per_vertex: Optional[float] = None
     driver: str = "pull"
@@ -197,12 +221,14 @@ class SessionReport:
 class PageRankSession:
     """Stateful PageRank handle owning the graph state, the resolved engine
     and the ranks.  Construct via :meth:`from_graph` (streams and serving)
-    or :meth:`from_snapshot` (solves over an existing snapshot)."""
+    or :meth:`from_snapshot` (solves over an existing snapshot), or reopen
+    a durable one with :meth:`restore`."""
 
     def __init__(self, *, hg: Optional[HostGraph] = None,
                  g: Optional[GraphSnapshot] = None,
                  config: Optional[EngineConfig] = None, r0=None,
-                 device="cuda"):
+                 device="cuda", store_dir: Optional[str] = None,
+                 _restore_attach: bool = False):
         if config is None:
             config = EngineConfig()
         if not isinstance(config, EngineConfig):
@@ -248,29 +274,69 @@ class PageRankSession:
         # seconds the last dt update or df/dt replay spent building its
         # two snapshots (host build and copy to the device)
         self._snap_s = 0.0
+        # -- durability / the process fault domain ---------------------------
+        self._recoveries: List[fault_domain.RecoveryRecord] = []
+        self._batch_index = 0       # update batches applied (the WAL key)
+        self._replaying = False     # True while restore() replays the WAL
+        self.store_dir = store_dir
+        self.store: Optional[SessionStore] = None
+        self._process_domain: Optional[fault_domain.ProcessFaultDomain] = None
+        if config.durability == "wal":
+            if hg is None:
+                raise ValueError(
+                    "durability='wal' needs a host graph (from_graph, or "
+                    "from_snapshot with hg=) — the WAL replays edge "
+                    "batches against it")
+            if store_dir is None:
+                raise ValueError(
+                    "durability='wal' needs a store_dir= (the directory "
+                    "holding the checkpoint + WAL)")
+            self.store = SessionStore(store_dir)
+            if not _restore_attach and (
+                    self.store.read_meta() is not None
+                    or self.store.latest_checkpoint_index is not None):
+                raise ValueError(
+                    f"store_dir {store_dir!r} already holds a session — "
+                    "reopen it with PageRankSession.restore(dir) (replays "
+                    "its WAL), or give a new session a fresh directory; "
+                    "mixing two sessions' logs would corrupt both")
+            self._process_domain = fault_domain.ProcessFaultDomain(
+                self.store, checkpoint_interval=config.checkpoint_interval)
         if self._stream:
             self._init_stream(r0)
         else:
             self._init_snapshot(g, r0)
+        # durable bootstrap: a fresh store gets the meta and a checkpoint of
+        # the born state (batch 0), so a crash before the first update
+        # already restores; restore() attaches to a populated store
+        if (self.store is not None
+                and self.store.latest_checkpoint_index is None):
+            self._checkpoint_now()
 
     @classmethod
     def from_graph(cls, hg: HostGraph, *,
                    config: Optional[EngineConfig] = None, r0=None,
-                   device="cuda") -> "PageRankSession":
+                   device="cuda", store_dir: Optional[str] = None
+                   ) -> "PageRankSession":
         """Open a session over a host graph on ``device``.  With the pallas
         engine this is stream mode; other engines run snapshot mode.
         ``r0=None`` runs one initial solve (``variant="static"``
-        semantics) so the session is born serving."""
-        return cls(hg=hg, config=config, r0=r0, device=device)
+        semantics) so the session is born serving.  ``store_dir`` is the
+        store a ``config.durability="wal"`` session checkpoints and logs
+        through."""
+        return cls(hg=hg, config=config, r0=r0, device=device,
+                   store_dir=store_dir)
 
     @classmethod
     def from_snapshot(cls, g: GraphSnapshot, *,
                       config: Optional[EngineConfig] = None, r0=None,
-                      hg: Optional[HostGraph] = None) -> "PageRankSession":
+                      hg: Optional[HostGraph] = None,
+                      store_dir: Optional[str] = None) -> "PageRankSession":
         """Wrap an existing snapshot (snapshot mode, on the snapshot's
         device; the block grid comes from the snapshot, not
-        ``config.block_size``).  Pass ``hg`` as well to enable ``update``."""
-        return cls(hg=hg, g=g, config=config, r0=r0)
+        ``config.block_size``).  Pass ``hg`` as well to enable ``update``
+        (and a durable store)."""
+        return cls(hg=hg, g=g, config=config, r0=r0, store_dir=store_dir)
 
     def _init_stream(self, r0) -> None:
         cfg = self.config
@@ -606,19 +672,45 @@ class PageRankSession:
                 "this session wraps a bare snapshot (from_snapshot without "
                 "hg=); build it with PageRankSession.from_graph to stream "
                 "updates")
+        # validate BEFORE the WAL append and before any device write: a bad
+        # batch raises here, is never logged and never replays
         deletions, insertions = validate_edge_batch(deletions, insertions,
                                                     self.n)
-        if self._stream:
-            res = self._update_stream(deletions, insertions, variant)
-        else:
-            res = self._update_snapshot(deletions, insertions, variant)
+        bidx = self._batch_index + 1
+        wal_undo = None
+        if self.store is not None and not self._replaying:
+            wal_undo = self.store.wal_size()
+        try:
+            if wal_undo is not None:
+                # write-ahead: the batch is durable before any device write;
+                # inside the try, so a failed append rolls back as well
+                self.store.append_wal(
+                    batch_index=bidx, variant=variant,
+                    deletions=np.asarray(deletions,
+                                         np.int64).reshape(-1, 2),
+                    insertions=np.asarray(insertions,
+                                          np.int64).reshape(-1, 2))
+            if self._stream:
+                res = self._update_stream(deletions, insertions, variant)
+            else:
+                res = self._update_snapshot(deletions, insertions, variant)
+        except BaseException:
+            # the session refused the batch: revoke its record so a restore
+            # does not replay what the live session never held
+            if wal_undo is not None:
+                self.store.truncate_wal(wal_undo)
+            raise
+        self._batch_index = bidx
         self._history.append(res)
         if not res.stats.converged:
             warnings.warn(
-                f"update batch {len(self._history)} hit the sweep cap "
+                f"update batch {bidx} hit the sweep cap "
                 f"(max_iterations={self.config.max_iterations}) without "
                 f"reaching tau={self.config.tau} — serving the best iterate",
                 SweepCapWarning, stacklevel=2)
+        if (self._process_domain is not None and not self._replaying
+                and bidx % self._process_domain.checkpoint_interval == 0):
+            self._checkpoint_now()
         return res
 
     # -- recompute -----------------------------------------------------------
@@ -635,6 +727,14 @@ class PageRankSession:
         if variant not in VARIANTS:
             raise ValueError(f"variant={variant!r} invalid; "
                              f"expected one of {VARIANTS}")
+        res = self._recompute(variant)
+        if self._process_domain is not None and not self._replaying:
+            # recompute changes the served ranks outside the WAL's batch
+            # stream: checkpoint, so restore() serves what the session did
+            self._checkpoint_now()
+        return res
+
+    def _recompute(self, variant: str) -> PagerankResult:
         if variant in ("df", "dt") and self._push:
             raise ValueError(
                 f"recompute({variant!r}) replays the pull driver's "
@@ -727,6 +827,16 @@ class PageRankSession:
     def closed(self) -> bool:
         return self._closed
 
+    @property
+    def device_footprint(self) -> Tuple[int, ...]:
+        """Ids of the devices this session's state occupies: the card's
+        index on CUDA, ``(0,)`` on the CPU (as the reference gives there),
+        ``()`` once closed."""
+        if self._closed:
+            return ()
+        dev = self.R.device
+        return (dev.index,) if dev.type == "cuda" else (0,)
+
     def _ensure_open(self) -> None:
         if self._closed:
             raise ValueError("session is closed — open a new "
@@ -740,7 +850,8 @@ class PageRankSession:
         self._closed = True
         for attr in ("R", "inc", "g", "valid", "_out_deg", "_rb_in",
                      "_rb_out", "_bmat", "_fault_tables", "_residual",
-                     "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev"):
+                     "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev",
+                     "store", "_process_domain"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -750,6 +861,140 @@ class PageRankSession:
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.close()
         return False
+
+    # -- durability / the process fault domain --------------------------------
+    def _meta(self) -> dict:
+        """JSON-able store meta: graph identity and the config's fields as
+        the reference writes them (``faults`` / ``fault_domain`` are
+        injection schedules, not state; ``dtype`` by its numpy name), so
+        either package restores the other's store."""
+        cfgd = {}
+        for f in dataclasses.fields(self.config):
+            if f.name in ("faults", "fault_domain"):
+                continue
+            v = getattr(self.config, f.name)
+            if f.name == "dtype" and v is not None:
+                v = str(as_torch_dtype(v)).removeprefix("torch.")
+            cfgd[f.name] = v
+        return {"format": 1, "kind": "pagerank-session",
+                "n": int(self.hg.n), "config": cfgd}
+
+    def _checkpoint_into(self, store: SessionStore) -> str:
+        """One atomic checkpoint of the current state: the ranks of the n
+        vertices and the host edge set, keyed by the applied-batch count."""
+        if store.read_meta() is None:
+            store.write_meta(self._meta())
+        return store.checkpoint(
+            ranks=self.R[:self.n].cpu().numpy(), edges=self.hg.edges,
+            batch_index=self._batch_index)
+
+    def _checkpoint_now(self) -> str:
+        return self._checkpoint_into(self.store)
+
+    def save(self, directory: Optional[str] = None) -> str:
+        """Force one atomic checkpoint of the current state (ranks + edge
+        set, keyed by the applied-batch count).  A durable session
+        checkpoints into its store (which also shortens a later restore's
+        replay); any session may pass ``directory`` to save into a fresh
+        :class:`~repro_torch.ckpt.checkpoint.SessionStore`.  Returns the
+        checkpoint's path."""
+        self._ensure_open()
+        if self.hg is None:
+            raise ValueError("save() needs a host graph (from_graph, or "
+                             "from_snapshot with hg=)")
+        store = self.store
+        if directory is not None and (
+                store is None
+                or os.path.abspath(directory) != os.path.abspath(store.dir)):
+            store = SessionStore(directory)
+        if store is None:
+            raise ValueError(
+                "save() needs a directory= (this session has no attached "
+                "store; open it with durability='wal' + store_dir= for "
+                "continuous durability)")
+        return self._checkpoint_into(store)
+
+    @classmethod
+    def restore(cls, directory: str, *,
+                config: Optional[EngineConfig] = None,
+                device="cuda") -> "PageRankSession":
+        """Reopen a session from its store on ``device``: the newest valid
+        checkpoint (the pull matrix built fresh from its edges, its ranks
+        taken as they are: no solve), then a replay through :meth:`update`
+        of every batch the WAL logged after it.  ``config`` overrides the
+        stored config.  The recovery shows in ``report()``
+        (``replayed_batches``, ``recovery_time_s``)."""
+        t0 = time.perf_counter()
+        store = SessionStore(directory)
+        meta = store.read_meta()
+        if meta is None:
+            raise ValueError(f"{directory!r} is not a session store "
+                             "(missing meta.json)")
+        got = store.restore_latest_state()
+        if got is None:
+            raise ValueError(f"{directory!r} holds no valid checkpoint "
+                             "(all steps corrupt or none written)")
+        state, ckpt_idx = got
+        if config is None:
+            config = EngineConfig.from_kwargs(**meta["config"])
+        hg = HostGraph(int(meta["n"]), state["edges"])
+        sess = cls(hg=hg, config=config, r0=state["ranks"], device=device,
+                   store_dir=(directory if config.durability == "wal"
+                              else None),
+                   _restore_attach=True)
+        sess._batch_index = ckpt_idx
+        recs = store.read_wal(after=ckpt_idx)
+        sess._replaying = True
+        try:
+            for rec in recs:
+                sess.update(rec.deletions, rec.insertions,
+                            variant=rec.variant)
+        finally:
+            sess._replaying = False
+        # the replay built and loaded what the stream needs; with nothing
+        # replayed the session is cold and report() excuses its first update
+        sess._warm_idx = len(sess._history) if recs else None
+        sess._recoveries.append(fault_domain.RecoveryRecord(
+            domain="process", batch_index=ckpt_idx,
+            wall_time_s=time.perf_counter() - t0,
+            replayed_batches=len(recs),
+            description=(f"restored from checkpoint {ckpt_idx} + "
+                         f"{len(recs)} WAL batch(es)")))
+        return sess
+
+    # -- what-if branching ---------------------------------------------------
+    def fork(self) -> "PageRankSession":
+        """What-if branch: an independent session in the parent's state.
+        The reference's fork shares its immutable device arrays; the port
+        patches the tile pool, the packed index and the operand mirrors in
+        place, so the fork copies every device tensor a later update writes
+        (at n = 1M about one more tile pool).  The fork detaches from any
+        store: two writers on one WAL would interleave."""
+        self._ensure_open()
+        new = object.__new__(PageRankSession)
+        new.__dict__.update(self.__dict__)
+        new._history = []
+        new._warm_idx = 0 if self._warm_idx is not None else None
+        new._queries = 0
+        new.store = None
+        new.store_dir = None
+        new._process_domain = None
+        new._recoveries = []
+        new._replaying = False
+        for attr in ("R", "valid", "_residual", "_r_prev", "_out_deg",
+                     "_rb_in", "_rb_out", "_bmat"):
+            t = getattr(self, attr, None)
+            if t is not None:
+                setattr(new, attr, t.clone())
+        if self.inc is not None:
+            aux = self.inc.aux
+            new.inc = IncrementalPullMatrix(
+                self.inc.mat.clone(),
+                MatrixAux(bmat=aux.bmat.copy(), rb_in=aux.rb_in.copy(),
+                          rb_out=aux.rb_out.copy())
+                if aux is not None else None)
+            new._out_deg_host = self._out_deg_host.copy()
+        return new
 
     # -- warmup / reporting --------------------------------------------------
     def warmup(self) -> None:
@@ -794,6 +1039,12 @@ class PageRankSession:
             queries_served=self._queries, wall_times_s=walls,
             batches_converged=sum(1 for r in hist if r.stats.converged),
             sweep_cap_hits=sum(1 for r in hist if not r.stats.converged),
+            durability=self.config.durability,
+            recoveries=len(self._recoveries),
+            recovery_time_s=sum(r.wall_time_s for r in self._recoveries),
+            replayed_batches=sum(r.replayed_batches
+                                 for r in self._recoveries),
+            recovery_events=[r.to_dict() for r in self._recoveries],
             device_bytes=dev_bytes,
             bytes_per_vertex=(sum(dev_bytes.values()) / max(self.n, 1)
                               if dev_bytes is not None else None),

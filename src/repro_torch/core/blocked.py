@@ -236,7 +236,7 @@ class BlockedEngine:
     """Registry adapter for the blocked frontier sweep engine."""
 
     name = "blocked"
-    fault_domains = ("thread",)
+    fault_domains = ("thread", "process")
 
     def run(self, g, R0, affected0, *, mode, expand, alpha, tau, tau_f,
             max_iterations, faults, tile, active_policy,

@@ -282,7 +282,7 @@ class DenseEngine:
     blocked with every block active)."""
 
     name = "dense"
-    fault_domains = ("thread",)
+    fault_domains = ("thread", "process")
 
     def run(self, g, R0, affected0, *, mode, expand, alpha, tau, tau_f,
             max_iterations, faults, tile, active_policy,

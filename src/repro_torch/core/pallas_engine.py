@@ -297,7 +297,7 @@ class PallasEngine:
     the tensors' device, so ``backend`` must be ``None``."""
 
     name = "pallas"
-    fault_domains = ("thread",)
+    fault_domains = ("thread", "process")
 
     def run(self, g, R0, affected0, *, mode, expand, alpha, tau, tau_f,
             max_iterations, faults, tile, active_policy,

@@ -11,8 +11,9 @@ Differences from the reference: ``device="cuda"`` by default, as every
 entry point of the port; the engine options are ``EngineConfig``'s own
 (given as ``config=`` or as its keyword fields, ``driver=`` among them)
 rather than a copy of them; no ``interpret``/``backend`` (the tensors'
-device picks kernel or plain version), no durability arguments
-(ROADMAP A 9), and no re-exports of session internals.
+device picks kernel or plain version), and no re-exports of session
+internals.  A durable stream takes ``durability="wal"`` among the fields
+and its store as ``store_dir=``.
 """
 from __future__ import annotations
 
@@ -59,17 +60,20 @@ class StreamRunner:
         for dels, ins in batches:
             res = runner.step(dels, ins)     # converged ranks + latency
 
-    ``config=None`` builds ``EngineConfig(**fields)``.  The vertex set (and
+    ``config=None`` builds ``EngineConfig(**fields)``; ``store_dir`` is
+    the store of a ``durability="wal"`` config.  The vertex set (and
     hence the block grid) is fixed for the lifetime of the runner.
     ``r0=None`` runs one initial solve on the initial graph."""
 
     def __init__(self, hg0: HostGraph, config: Optional[EngineConfig] = None,
-                 *, r0=None, device="cuda", **fields):
+                 *, r0=None, device="cuda", store_dir: Optional[str] = None,
+                 **fields):
         # imported here: core/ sits below api/ in the package's layering
         from repro_torch.api.session import PageRankSession
         cfg = config if config is not None else EngineConfig(**fields)
         self.session = PageRankSession.from_graph(hg0, config=cfg, r0=r0,
-                                                  device=device)
+                                                  device=device,
+                                                  store_dir=store_dir)
 
     def warmup(self) -> None:
         """See :meth:`PageRankSession.warmup`."""

@@ -122,6 +122,13 @@ class PackedIndex:
         return sum(t.nbytes for t in (self.off, self.cnt, self.row, self.col,
                                       self.val))
 
+    def clone(self) -> "PackedIndex":
+        """A copy sharing no storage (``refresh_index`` writes in place)."""
+        return PackedIndex(
+            off=self.off.clone(), cnt=self.cnt.clone(), row=self.row.clone(),
+            col=self.col.clone(), val=self.val.clone(), tail=self.tail,
+            bound_h=self.bound_h.copy())
+
 
 def _pack_tiles(index: PackedIndex, T: torch.Tensor, ids: torch.Tensor,
                 res: np.ndarray, start: int) -> None:
@@ -267,6 +274,16 @@ class BlockSparse:
     @property
     def device(self) -> torch.device:
         return self.tiles.device
+
+    def clone(self) -> "BlockSparse":
+        """A copy sharing no storage with this matrix — the tile pool, the
+        slot tables (device and host) and the packed index — for a holder
+        that must not see the in-place patches of :func:`apply_delta`."""
+        return dataclasses.replace(
+            self, tiles=self.tiles.clone(), tile_cols=self.tile_cols.clone(),
+            tile_idx=self.tile_idx.clone(),
+            tile_cols_h=self.tile_cols_h.copy(),
+            tile_idx_h=self.tile_idx_h.copy(), index=self.index.clone())
 
     def n_tiles(self) -> int:
         """Live tile count (from the host slot tables; no device sync)."""

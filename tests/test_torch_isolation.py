@@ -23,6 +23,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     for m in ("repro_torch.api.session", "repro_torch.api.registry",
               "repro_torch.core.properties", "repro_torch.core.pagerank",
               "repro_torch.core.blocked", "repro_torch.core.fault_domain",
+              "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
               "repro_torch.kernels.nvcc",
               "repro_torch.kernels.blocked_sweep.blocked_sweep"):
         assert m in mods

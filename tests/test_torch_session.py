@@ -173,8 +173,9 @@ def test_session_from_numpy_round_trips():
 
 
 class _ProcessDomain(FaultDomain):
-    """A fault domain other than the thread domain (the process domain is
-    ROADMAP item A 9)."""
+    """A fault domain other than the thread domain that is not the port's
+    ProcessFaultDomain (the corruption and shard domains are ROADMAP items
+    A 11 and A 14)."""
     name = "process"
 
 
@@ -184,13 +185,14 @@ class _ProcessDomain(FaultDomain):
     ({"walks_per_vertex": 4}, "A 13"),
     ({"walk_length": 8}, "A 13"),
     ({"walk_seed": 1}, "A 13"),
-    ({"durability": "wal"}, "A 9"),
+    # durability="wal" runs since A 9; the tiered store still refuses on it
+    ({"durability": "wal", "device_budget_bytes": 1 << 20}, "A 10"),
     ({"integrity": {"mass_tol": 1e-6}}, "A 11"),
-    ({"fault_domain": _ProcessDomain()}, "A 9"),
+    ({"fault_domain": _ProcessDomain()}, "A 11"),
     # the blocked engine and the dense engine's LF mode run since A 7; the
     # later axes still refuse on them
     ({"engine": "blocked", "device_budget_bytes": 1 << 20}, "A 10"),
-    ({"engine": "dense", "fault_domain": _ProcessDomain()}, "A 9"),
+    ({"engine": "dense", "fault_domain": _ProcessDomain()}, "A 11"),
     ({"engine": "walk"}, "A 13"),
     ({"engine": "distributed"}, "A 14"),
 ])

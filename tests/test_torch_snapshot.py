@@ -166,7 +166,7 @@ class TestRegistry:
         for name in ("blocked", "dense", "pallas"):
             eng = registry.resolve(name)
             assert registry.supports_of(eng) == frozenset()
-            assert registry.fault_domains_of(eng) == ("thread",)
+            assert registry.fault_domains_of(eng) == ("thread", "process")
             registry.reject_personalization(eng, {"walk_seed": None})
             with pytest.raises(registry.CapabilityError, match="ppr"):
                 registry.reject_personalization(eng, {"walk_seed": 3})
