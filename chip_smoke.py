@@ -94,11 +94,27 @@ Phases, each of which raises (non-zero exit) on any failed check:
    and the record's bytes), the durable df p50 beside
    phase 3's, the checkpoint's bytes and seconds, the restore's
    ``recovery_time_s`` and ``replayed_batches``, and the fork's ms and
-   device-memory delta.
+   device-memory delta;
+10. the tiered pull path (``EngineConfig(device_budget_bytes=...)``) on
+   phase 3's graph and batches, with the launch counters zeroed just
+   before and read at the end: a session at half the host pool's bytes
+   (in the reference's dense-tile units, so its ~131,100 slab slots hold
+   fewer than the 132,245 live tiles) opens with a tiered cold solve that
+   must evict and refill, takes the 8 ``df`` batches and the ``nd`` batch
+   (every update converged, no ``SweepCapWarning``, within 1e-8 of phase
+   3's ranks and oracle, no dense tile on the card), is saved and
+   restored untiered and under the full budget (bit-equal) and forked (the
+   parent's next batch leaves the child alone); a full-budget session
+   warm-starts from phase 3's opening ranks and takes the same batches. It
+   prints the card memory beside phase 3's session's, the host pool's bytes
+   and build time, the cold solve's refill rounds, ``df`` p50/p95, host
+   syncs and host admission time per update, ``report().device_bytes`` and
+   ``report().tiering``.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
-path's (phase 8) and the durable path's (phase 9).  Prints the
+path's (phase 8), the durable path's (phase 9) and the tiered path's
+(phase 10).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -119,6 +135,7 @@ import threading
 import time
 import warnings
 from pathlib import Path
+from typing import List
 
 import numpy as np
 import torch
@@ -133,6 +150,7 @@ BLOCK = 64
 TAU = 1e-10
 N_DF_UPDATES = 8
 N_DT_UPDATES = 2
+TIERED_MAX_ITERATIONS = 4000     # phase 10: refill rounds of the cold solve
 HOLD_CYCLES = 200_000_000        # ≥ 80 ms at the H100's ≤ 1.98 GHz clock
 
 
@@ -1671,6 +1689,218 @@ def _durable_phase(bsk, batches, nd_batch, kept: dict, r_nd, df_p50_ms,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the tiered pull path on the main path's graph
+# ---------------------------------------------------------------------------
+
+def _linf(a: np.ndarray, b: np.ndarray, n: int) -> float:
+    return float(np.abs(a[:n] - b[:n]).max())
+
+
+def _tiered_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
+    """Phase 10: tiered pull sessions (``device_budget_bytes``) on phase 3's
+    graph and batches.  ``p3`` holds phase 3's numbers: its opening ranks
+    (``r_open``), its ranks after the 8 df updates (``r_df``) and after the
+    nd update (``r_nd``), the oracle of its final graph (``ref``), the
+    card memory its session held (``mem``), its df walls (``df_ms``) and
+    host syncs (``syncs``).  A half-budget session opens with a tiered
+    cold solve (it must evict and refill), streams the batches and is held
+    to phase 3 and its oracle; a full-budget one warm-starts from phase
+    3's opening ranks; the half-budget one is saved, restored untiered and
+    under the full budget (bit for bit) and forked.  Returns the path's
+    launch counts."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession, SweepCapWarning
+    from repro_torch.core import tiering
+    from repro_torch.core.delta import random_batch
+    t_phase = time.perf_counter()
+    n = hg.n
+    g0 = hg.snapshot(block_size=BLOCK, device="cpu")
+    src, dst = g0.in_edges_host()
+    t0 = time.perf_counter()
+    pool = tiering.HostTilePool.from_edges(dst, src, g0.n_pad, g0.n_pad,
+                                           block=BLOCK, dtype=np.float64)
+    t_pool = time.perf_counter() - t0
+    pool_bytes = pool.nbytes
+    live = int((pool.tile_cols >= 0).sum())
+    del pool, g0, src, dst
+    half = pool_bytes // 2
+    cap = tiering.slab_tiles_for_budget(half, BLOCK, np.float64)
+    print(f"host pool: {pool_bytes} bytes ({pool_bytes / 1e9:.2f} GB, "
+          f"{live} live tiles) built in {t_pool:.2f} s; half budget "
+          f"{half} bytes = {cap} slab slots ({cap - 1} usable) [{smi}]",
+          flush=True)
+    _check(cap - 1 < live, "the half budget holds every live tile")
+    # the refill loop's cap is max_iterations rounds; a tiered cold solve at
+    # this size needs over a thousand (the deferral window walks the grid) —
+    # a drive that converges is the same under either cap
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU,
+                       device_budget_bytes=half,
+                       max_iterations=TIERED_MAX_ITERATIONS)
+
+    # -- the path: launch counters zeroed just before, read just after -----
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SweepCapWarning)
+        t0 = time.perf_counter()
+        sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        t_open = time.perf_counter() - t0
+        tier_open = dict(sess.hot.stats())
+        cold = bsk.block_spmv_active_cuda.launches
+        print(f"tiered open + cold solve (half budget): {t_open:.2f} s, "
+              f"refill rounds {tier_open['refill_drives']}, evictions "
+              f"{tier_open['evictions']}, admitted tiles "
+              f"{tier_open['admitted_tiles']}, slab repacks "
+              f"{tier_open['index_repacks']}; block_spmv_active launches "
+              f"{cold} [{smi}]", flush=True)
+        sess.warmup()
+        mem_tiered = torch.cuda.memory_allocated() - mem0
+        admit_ms: List[float] = []
+        orig_admit = sess.hot.admit
+
+        def timed_admit(want_rb):
+            t = time.perf_counter()
+            out = orig_admit(want_rb)
+            admit_ms[-1] += (time.perf_counter() - t) * 1e3
+            return out
+
+        sess.hot.admit = timed_admit
+        df = []
+        for i, (dels, ins) in enumerate(batches):
+            admit_ms.append(0.0)
+            c0 = dict(sess.hot.counters)
+            res = sess.update(dels, ins, variant="df")
+            torch.cuda.synchronize()
+            df.append(res)
+            c1 = sess.hot.counters
+            print(f"tiered df update {i}: {res.wall_time_s * 1e3:.2f} ms "
+                  f"(admission {admit_ms[-1]:.2f} ms host), sweeps "
+                  f"{res.stats.sweeps}, edges {res.stats.edges_processed}, "
+                  f"host syncs {res.host_syncs}, refill rounds "
+                  f"{c1['refill_drives'] - c0['refill_drives']}, evictions "
+                  f"{c1['evictions'] - c0['evictions']}, admitted tiles "
+                  f"{c1['admitted_tiles'] - c0['admitted_tiles']}, "
+                  f"converged {res.converged}", flush=True)
+        r_df = sess.ranks
+        admit_ms.append(0.0)
+        nd = sess.update(*nd_batch, variant="nd")
+        torch.cuda.synchronize()
+        del sess.hot.admit              # a fork copies the instance's dict
+    df_launches = bsk.block_spmv_active_cuda.launches - cold
+    rep = sess.report()
+    t = rep.tiering
+    walls = np.array([r.wall_time_s for r in df]) * 1e3
+    print(f"tiered nd update: {nd.wall_time_s * 1e3:.2f} ms (admission "
+          f"{admit_ms[-1]:.2f} ms host), sweeps {nd.stats.sweeps}, host "
+          f"syncs {nd.host_syncs}", flush=True)
+    print(f"tiered df p50 {np.percentile(walls, 50):.2f} ms, p95 "
+          f"{np.percentile(walls, 95):.2f} ms beside phase 3's p50 "
+          f"{np.percentile(p3['df_ms'], 50):.2f} ms, p95 "
+          f"{np.percentile(p3['df_ms'], 95):.2f} ms; host syncs per update "
+          f"{[r.host_syncs for r in df]} beside phase 3's {p3['syncs']}; "
+          f"admission per df update p50 "
+          f"{np.percentile(admit_ms[:len(df)], 50):.2f} ms host "
+          f"[{smi}]", flush=True)
+    print(f"card memory: tiered session {mem_tiered} bytes "
+          f"({mem_tiered / 1e9:.3f} GB) beside phase 3's untiered "
+          f"{p3['mem']} bytes ({p3['mem'] / 1e9:.3f} GB) "
+          f"(torch.cuda.memory_allocated after open + warmup) [{smi}]",
+          flush=True)
+    print(f"tiered report().device_bytes: {rep.device_bytes}", flush=True)
+    print(f"tiered report().tiering: {t}", flush=True)
+    print(f"launches after the cold solve (warmup, 8 df, nd): "
+          f"block_spmv_active {df_launches}, block_spmv "
+          f"{bsk.block_spmv_cuda.launches}", flush=True)
+    _check(all(r.converged for r in df) and nd.converged,
+           "a tiered update did not converge")
+    _check(t["evictions"] > 0 and t["refill_drives"] > 0,
+           "the half-budget session neither evicted nor refilled")
+    _check(rep.device_bytes["tile_pool"] == 0,
+           "the tiered session holds dense tiles on the card")
+    e_df = _linf(r_df, p3["r_df"], n)
+    r_nd = sess.ranks
+    e_nd = _linf(r_nd, p3["r_nd"], n)
+    e_ref = _linf(r_nd, p3["ref"], n)
+    print(f"tiered L_inf: after the df updates {e_df:.3e} to phase 3's; "
+          f"after nd {e_nd:.3e} to phase 3's and {e_ref:.3e} to its "
+          f"oracle", flush=True)
+    _check(max(e_df, e_nd, e_ref) <= 1e-8,
+           f"tiered ranks off phase 3 or its oracle: {e_df}, {e_nd}, "
+           f"{e_ref}")
+
+    # -- save, restore untiered and under the full budget, fork ------------
+    store = STORE_ROOT / "tiered"
+    shutil.rmtree(store, ignore_errors=True)
+    sess.save(str(store))
+    for what, budget in (("untiered", None), ("full budget", pool_bytes)):
+        t0 = time.perf_counter()
+        back = PageRankSession.restore(
+            str(store), config=cfg.replace(device_budget_bytes=budget),
+            device="cuda")
+        torch.cuda.synchronize()
+        _check(bool(np.array_equal(back.ranks[:n], r_nd[:n])),
+               f"the {what} restore of the tiered save is not bit-equal")
+        print(f"restore of the half-budget save, {what}: "
+              f"{time.perf_counter() - t0:.2f} s, bit-equal", flush=True)
+        back.close()
+        del back
+        torch.cuda.empty_cache()
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    child = sess.fork()
+    fork_s = time.perf_counter() - t0
+    dels, ins = random_batch(sess.hg, 1e-4, seed=100 + N_DF_UPDATES + 1,
+                             deletions_frac=0.2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SweepCapWarning)
+        _check(sess.update(dels, ins, variant="df").converged,
+               "the parent's update after the fork did not converge")
+    _check(bool(np.array_equal(child.ranks[:n], r_nd[:n])),
+           "the parent's update moved the fork's ranks")
+    print(f"fork of the half-budget session: {fork_s:.2f} s; the parent "
+          f"took one more batch, the child's ranks did not move", flush=True)
+    child.close()
+    sess.close()
+    del child, sess
+    torch.cuda.empty_cache()
+
+    # -- the full budget, warm-started from phase 3's opening ranks --------
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SweepCapWarning)
+        t0 = time.perf_counter()
+        full = PageRankSession.from_graph(
+            hg, config=cfg.replace(device_budget_bytes=pool_bytes),
+            r0=p3["r_open"], device="cuda")
+        full.warmup()
+        t_open = time.perf_counter() - t0
+        fres = [full.update(d, i, variant="df") for d, i in batches]
+        torch.cuda.synchronize()
+    ft = full.report().tiering
+    e_full = _linf(full.ranks, p3["r_df"], n)
+    fwalls = np.array([r.wall_time_s for r in fres]) * 1e3
+    print(f"tiered full budget (warm start): open {t_open:.2f} s; df p50 "
+          f"{np.percentile(fwalls, 50):.2f} ms, p95 "
+          f"{np.percentile(fwalls, 95):.2f} ms; evictions "
+          f"{ft['evictions']}, refill rounds {ft['refill_drives']}; "
+          f"L_inf {e_full:.3e} to phase 3's df ranks [{smi}]", flush=True)
+    _check(all(r.converged for r in fres), "a full-budget update did not "
+           "converge")
+    _check(e_full <= 1e-8, f"full-budget ranks off phase 3: {e_full}")
+    full.close()
+    del full
+    torch.cuda.empty_cache()
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches,
+                "blocked_sweep": 0}
+    print(f"launches on the tiered path: {launches}; phase 10 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1723,10 +1953,13 @@ def main() -> None:
     cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU)
     bsk.block_spmv_cuda.launches = 0
     bsk.block_spmv_active_cuda.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
     torch.cuda.synchronize()
     t_open = time.perf_counter() - t0
+    r_open = sess.ranks                   # phase 10's warm start
     cold = (bsk.block_spmv_cuda.launches, bsk.block_spmv_active_cuda.launches)
     mat = sess.inc.mat
     print(f"open + cold solve: {t_open:.2f} s; tile pool {mat.n_tiles()} "
@@ -1736,6 +1969,7 @@ def main() -> None:
           f"({mat.index.tail} entries of {mat.index.entry_capacity}); "
           f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
     sess.warmup()
+    mem3 = torch.cuda.memory_allocated() - mem0     # for phase 10
     df, growth, batches, kept = [], [], [], {}
     for i in range(N_DF_UPDATES):
         dels, ins = random_batch(sess.hg, 1e-4, seed=100 + i,
@@ -1838,11 +2072,20 @@ def main() -> None:
     # -- phase 9: durability, on phase 3's graph and batches ----------------
     dur_launches = _durable_phase(bsk, batches, nd_batch, kept, r,
                                   float(np.percentile(walls, 50)), smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the tiered pull path, on phase 3's graph and batches -----
+    tier_launches = _tiered_phase(
+        bsk, hg, batches, nd_batch,
+        {"r_open": r_open, "r_df": kept[N_DF_UPDATES], "r_nd": r,
+         "ref": ref, "mem": mem3, "df_ms": walls,
+         "syncs": [x.host_syncs for x in df]}, smi)
     for row in table:
         row["launches"] = (launches[row["name"]] + push_launches[row["name"]]
                            + var_launches[row["name"]]
                            + blk_launches[row["name"]]
-                           + dur_launches[row["name"]])
+                           + dur_launches[row["name"]]
+                           + tier_launches[row["name"]])
     table.append(sweep_row)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

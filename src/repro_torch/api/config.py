@@ -6,9 +6,11 @@ Same fields and the same construction-time validation as the JAX config.
 ``"pallas"``, or a ``REPRO_ENGINE`` override, validated eagerly).  Values
 that belong to later slices of the port raise ``NotImplementedError`` at
 construction, naming the ROADMAP item (queue A) that brings them; a config
-that constructs is one the port runs.  The ``driver="push"`` rules and the
-``fault_domain=`` checks come before those refusals, so a config the
-reference refuses for good gets the reference's ``ValueError``.
+that constructs is one the port runs: ``device_budget_bytes`` tiers a
+pull-driver stream (a push stream with a budget is A 10b).  The
+``driver="push"`` rules, the budget's rules and the ``fault_domain=``
+checks come before those refusals, so a config the reference refuses for
+good gets the reference's ``ValueError``.
 ``fault_domain=`` takes a
 :class:`~repro_torch.core.fault_domain.ThreadFaultDomain` (the same as
 ``faults=`` its plan).  The process domain comes from ``durability="wal"``
@@ -52,16 +54,17 @@ _LATER = {
                     "(sharded topology and the shard domain)",
     "integrity": "A 11 (integrity and chaos)",
     "walk": "A 13 (walk engine / PPR)",
-    "device_budget_bytes": "A 10 (tiered storage)",
+    "budget:push": "A 10b (tiered storage: the push refill and the "
+                   "blocked engine's EdgePager)",
 }
 
 
 def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
-        "the port runs the untiered single-device session (pallas engine "
-        "with the pull or push driver; blocked and dense engines; the "
-        "thread and process fault domains)")
+        "the port runs the single-device session (pallas engine with the "
+        "pull or push driver, tiered under the pull driver; blocked and "
+        "dense engines; the thread and process fault domains)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +131,23 @@ class EngineConfig:
         if self.driver not in DRIVERS:
             raise ValueError(
                 f"driver={self.driver!r} invalid; expected one of {DRIVERS}")
+        # -- tiered-storage axis: the reference's checks, before its engine
+        # resolution as there
+        if self.device_budget_bytes is not None:
+            v = self.device_budget_bytes
+            if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
+                raise ValueError(
+                    f"device_budget_bytes={v!r} must be a positive integer "
+                    "(or None for untiered storage)")
+            if self.topology != "single":
+                raise ValueError(
+                    "device_budget_bytes tiers a single device's tile pool; "
+                    "topology='sharded' already partitions state across "
+                    "devices — the two cannot compose")
+            if self.engine not in (None, "pallas"):
+                raise ValueError(
+                    "device_budget_bytes requires the streaming pallas "
+                    f"engine (got engine={self.engine!r})")
         later_engine = (self.engine is not None
                         and f"engine:{self.engine}" in _LATER)
         eng_name = (self.engine if later_engine
@@ -228,14 +248,10 @@ class EngineConfig:
             if v < lo:
                 raise ValueError(f"{name}={v} must be >= {lo}")
             raise _later(f"{name}=", "walk")
-        # -- tiered-storage axis ----------------------------------------------
-        if self.device_budget_bytes is not None:
-            v = self.device_budget_bytes
-            if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
-                raise ValueError(
-                    f"device_budget_bytes={v!r} must be a positive integer "
-                    "(or None for untiered storage)")
-            raise _later("device_budget_bytes=", "device_budget_bytes")
+        # -- the push driver's refill loop is a later slice ------------------
+        if self.device_budget_bytes is not None and self.driver == "push":
+            raise _later("device_budget_bytes= with driver='push'",
+                         "budget:push")
 
     # -- resolution helpers --------------------------------------------------
     @property

@@ -1,9 +1,11 @@
 """`PageRankSession` — one stateful handle for streams and snapshots.
 
-Ports the untiered, single-device stream and snapshot modes of
-``src/repro/api/session.py``: ``_seed_affected``, ``_apply_operand_delta``,
-``from_graph``, ``from_snapshot``, ``_init_stream``, ``_init_snapshot``,
-``_converge``, ``_drive``, ``_drive_push``, ``_residual_recompute``,
+Ports the single-device stream and snapshot modes of
+``src/repro/api/session.py``, tiered storage under the pull driver
+included: ``_seed_affected``, ``_apply_operand_delta``, ``_admit``,
+``_mask_from_indices``, ``_drive_refill``, ``from_graph``,
+``from_snapshot``, ``_init_stream``, ``_init_snapshot``, ``_converge``,
+``_drive``, ``_drive_push``, ``_residual_recompute``,
 ``_seed_push``, ``_update_stream``, ``_update_snapshot``, ``update`` (all
 four variants), ``recompute`` (``static``/``nd``, and the ``df``/``dt``
 replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
@@ -62,6 +64,19 @@ edges, the stored ranks as ``r0``: no solve) and replays the WAL through
 ``update``.  ``fork`` cannot share the pool as the reference's immutable
 arrays do, because the port patches it in place: a fork copies every device
 tensor a later update writes.
+
+Tiered storage (``EngineConfig(device_budget_bytes=N)``, pull driver): the
+whole tile pool stays on the host
+(:class:`~repro_torch.core.tiering.HostTilePool`) and the card holds a
+budget-bounded slab of packed entries
+(:class:`~repro_torch.core.tiering.HotSetManager`).  An update patches
+host truth, drops the touched blocks from the slab, seeds DF on the host
+(``df_seed_indices``), admits the touched and seed blocks and their
+candidates, and drives through the refill loop, which re-drives the
+blocks the driver deferred until the reference's quiet-window criterion
+drains them.  ``save`` reads host truth; a restore starts from an empty
+slab, so a WAL replay re-drives along another residency path than the
+live session took, as the reference's does.
 """
 from __future__ import annotations
 
@@ -77,11 +92,13 @@ import torch
 from repro_torch.api import registry
 from repro_torch.api.config import EngineConfig
 from repro_torch.ckpt.checkpoint import SessionStore
+from repro_torch.core import distributed as dist
 from repro_torch.core import fault_domain
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
 from repro_torch.core import pallas_engine as pe
 from repro_torch.core import push_engine as pshe
+from repro_torch.core import tiering
 from repro_torch.core.blocked import SweepStats
 from repro_torch.core.delta import signed_edge_delta, validate_edge_batch
 from repro_torch.core.graph import (GraphSnapshot, HostGraph,
@@ -216,6 +233,7 @@ class SessionReport:
     host_syncs_history: List[int] = dataclasses.field(default_factory=list)
     residual_mass_last: Optional[float] = None  # push: ‖r‖₁ at last exit
     pushed_blocks: Optional[int] = None         # push: total source blocks
+    tiering: Optional[dict] = None              # HotSetManager counters
 
 
 class PageRankSession:
@@ -250,6 +268,16 @@ class PageRankSession:
             config.faults, config.fault_domain)
         self._stream = (self.engine_name == "pallas" and hg is not None
                         and g is None)
+        # tiered storage: host-truth tile pool + a budget-bounded device hot
+        # slab; stream mode only
+        self._tiered = config.device_budget_bytes is not None
+        if self._tiered and not self._stream:
+            raise ValueError(
+                "device_budget_bytes tiers the streaming tile pool — open "
+                "the session with from_graph and the pallas engine")
+        self.pool: Optional[tiering.HostTilePool] = None
+        self.hot: Optional[tiering.HotSetManager] = None
+        self._deferred_rb: Optional[np.ndarray] = None
         # residual forward-push driver: a device-resident residual next to
         # the ranks, seeded in O(batch) per update
         self._push = config.driver == "push"
@@ -355,8 +383,24 @@ class PageRankSession:
             torch.as_tensor(a, device=dev)
             for a in plan.device_tables(cfg.max_iterations))
 
-        self.inc = IncrementalPullMatrix.from_snapshot(g0, dtype=dt,
-                                                       padded=True)
+        if self._tiered:
+            # host tier: the full tile pool and slot tables stay on the
+            # host; only the hot set's packed slab is on the device, and
+            # the device matrix is its view, rebound after every admission
+            src, dst = g0.in_edges_host()
+            self.pool = tiering.HostTilePool.from_edges(
+                dst, src, g0.n_pad, g0.n_pad, block=g0.block_size, dtype=dt)
+            self.hot = tiering.HotSetManager(
+                self.pool, cfg.device_budget_bytes, device=dev)
+            aux = MatrixAux(
+                bmat=tiering.host_block_adjacency(self.pool.tile_cols,
+                                                  self.pool.mat.n_cb),
+                rb_in=g0.block_in_edges().cpu().numpy().copy(),
+                rb_out=g0.block_out_edges().cpu().numpy().copy())
+            self.inc = IncrementalPullMatrix(self.hot.view(), aux)
+        else:
+            self.inc = IncrementalPullMatrix.from_snapshot(g0, dtype=dt,
+                                                           padded=True)
         self.valid = g0.vertex_valid
         # device-resident engine operands, patched in place per batch;
         # copies, never views of the host twins in inc.aux
@@ -373,6 +417,14 @@ class PageRankSession:
             self._residual = self._on_valid((1.0 - cfg.alpha) / self.n)
             r0, _, _, _ = self._drive_push(
                 torch.zeros(self.n_pad, dtype=dt, device=dev))
+        elif r0 is None and self._tiered:
+            # cold solve through the refill loop: admit what fits, converge
+            # the resident blocks, defer the rest (block-Jacobi over
+            # residency partitions; expansion carries corrections across
+            # rounds)
+            r0, _, _ = self._drive_refill(
+                initial_ranks(g0, dt), g0.vertex_valid,
+                want_rb=np.arange(self.n_rb))
         elif r0 is None:
             r0, _ = pe.run_pallas(
                 g0, initial_ranks(g0, dt), g0.vertex_valid, mode=cfg.mode,
@@ -437,6 +489,7 @@ class PageRankSession:
         is affected and stays so (see ``pallas_engine._driver``)."""
         cfg = self.config
         part, alive, delay, crashed = self._fault_tables
+        tiered = self._tiered
         R, sv, syncs = pe._driver(
             self.inc.mat, R0, affected, self.valid, self._out_deg,
             self._rb_in, self._rb_out, self._bmat,
@@ -444,8 +497,104 @@ class PageRankSession:
             part, alive, delay, crashed,
             n=self.n, block_size=self.block_size, mode=cfg.mode,
             expand=expand, active_policy=cfg.active_policy,
-            max_iterations=cfg.max_iterations, full=full)
+            max_iterations=cfg.max_iterations, full=full,
+            rb_res=self.hot.rb_res if tiered else None, tiered=tiered)
+        if tiered:
+            # the deferral indicator rode the drive's last poll
+            self._deferred_rb = sv[7:] != 0
+            sv = sv[:7]
         return R, pe._stats_from_vec(sv), syncs
+
+    # -- the tiered refill loop ----------------------------------------------
+    def _admit(self, want_rb) -> None:
+        """Admit row-blocks into the hot slab and rebind the device view
+        (tiered streams only)."""
+        self.hot.admit(want_rb)
+        self.inc.mat = self.hot.view()
+
+    def _mask_from_indices(self, idx: np.ndarray) -> torch.Tensor:
+        """Device indicator from a host index list: only the list crosses
+        to the device, never an O(n) vector."""
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        ind = torch.zeros(self.n_pad + 1, dtype=torch.bool,
+                          device=self.device)
+        if len(idx):
+            ind[ops._upload(np.minimum(idx, self.n_pad), self.device)] = True
+        return ind[:self.n_pad] & self.valid
+
+    def _drive_refill(self, R0, affected, *, want_rb
+                      ) -> Tuple[torch.Tensor, SweepStats, int]:
+        """Admission + fused drive + deferred-refill loop of a tiered
+        session, always expanding; returns (ranks, stats, host syncs made).
+
+        Admit the want set, drive, and while the driver deferred
+        non-resident blocks, admit those and re-drive with exactly the
+        deferred blocks re-marked affected (the paper's helping mechanism
+        applied to residency misses).  ``max_iterations`` rounds is the
+        safety cap (:class:`SweepCapWarning`).
+
+        Drain criterion (the reference's): the loop stops once every
+        currently deferred block has been re-driven during an unbroken run
+        of *quiet* rounds — rounds whose max rank movement stayed at or
+        below ``tau``, or at the float ulp floor when ``tau`` sits under
+        machine precision (counted in ``refill_stalls``).  Each quiet-round
+        check reads one or two scalars: a host sync each."""
+        self._admit(want_rb)
+        R, agg, syncs = self._drive(R0, affected, expand=True)
+        rounds = 0
+        eps = float(torch.finfo(R.dtype).eps)
+        tau = float(self.config.tau)
+        quiet_driven = np.zeros(self.n_rb, bool)
+        while self._deferred_rb is not None and self._deferred_rb.any():
+            if rounds >= int(self.config.max_iterations):
+                warnings.warn(
+                    f"tiered refill loop did not drain in {rounds} rounds "
+                    "— serving the best iterate (raise "
+                    "device_budget_bytes)", SweepCapWarning, stacklevel=3)
+                agg = dataclasses.replace(agg, converged=False)
+                break
+            rounds += 1
+            deferred = self._deferred_rb
+            pending = np.nonzero(deferred)[0]
+            self._admit(pending)
+            aff = _block_rows(ops._upload(deferred, self.device),
+                              self.block_size) & self.valid
+            R_prev = R
+            R, st, s = self._drive(R, aff, expand=True)
+            syncs += s
+            agg = SweepStats(
+                sweeps=agg.sweeps + st.sweeps,
+                iterations=agg.iterations + st.iterations,
+                blocks_processed=agg.blocks_processed + st.blocks_processed,
+                edges_processed=agg.edges_processed + st.edges_processed,
+                sim_time_ms=agg.sim_time_ms + st.sim_time_ms,
+                converged=bool(st.converged), dnf=bool(agg.dnf or st.dnf))
+            # drain check: a quiet round extends the window with the blocks
+            # it re-drove; a loud round (or an unconverged drive) resets it
+            driven = pending[self.hot.resident[pending]]
+            quiet = at_floor = False
+            if st.converged and len(driven):
+                delta = float((R - R_prev).abs().max())
+                syncs += 1
+                if delta <= tau:
+                    quiet = True
+                else:
+                    rmax = float(R.abs().max())
+                    syncs += 1
+                    at_floor = delta <= 16.0 * eps * max(rmax, eps)
+                    quiet = at_floor
+            if quiet:
+                quiet_driven[driven] = True
+                cur = np.nonzero(self._deferred_rb)[0]
+                if quiet_driven[cur].all():
+                    if at_floor:
+                        self.hot.counters["refill_stalls"] += 1
+                    self._deferred_rb = np.zeros_like(deferred)
+                    break
+            else:
+                quiet_driven[:] = False
+        self.hot.counters["refill_drives"] += rounds
+        return R, agg, syncs
 
     # -- the residual forward-push solve -------------------------------------
     def _on_valid(self, value: float) -> torch.Tensor:
@@ -503,8 +652,8 @@ class PageRankSession:
                            device=self.device), 0
 
     def _solve(self, variant: str, affected=None, sources=None,
-               deg_old_src=None) -> Tuple[torch.Tensor, SweepStats,
-                                          Optional[dict], int]:
+               deg_old_src=None, want_rb=None
+               ) -> Tuple[torch.Tensor, SweepStats, Optional[dict], int]:
         """One solve of the current graph: the start state and active set
         of ``variant`` on the session's driver, then its drive.  Returns
         (ranks, stats, push extras or None, host syncs made).  ``df`` takes
@@ -512,11 +661,23 @@ class PageRankSession:
         ``sources`` and their pre-batch degrees (push); ``dt`` takes the
         reachability mask ``affected`` and starts warm without expansion;
         ``nd`` starts warm and ``static`` cold, with every vertex
-        affected."""
+        affected.  A tiered session admits ``want_rb`` first and drives
+        through the refill loop, always expanding: the loop is
+        block-Jacobi over residency partitions, and only expansion
+        re-marks a resident block whose non-resident inputs moved later."""
         if self._push:
             P0, seed_syncs = self._seed_push(variant, sources, deg_old_src)
             R, stats, extras, syncs = self._drive_push(P0)
             return R, stats, extras, syncs + seed_syncs
+        if self._tiered:
+            R0 = self.R
+            if variant in ("nd", "static"):
+                affected = self.valid
+            if variant == "static":
+                R0 = self._on_valid(1.0 / self.n)
+            R, stats, syncs = self._drive_refill(R0, affected,
+                                                 want_rb=want_rb)
+            return R, stats, None, syncs
         policy_affected = self.config.active_policy == "affected"
         checks = 0
         if variant in ("df", "dt"):
@@ -571,15 +732,26 @@ class PageRankSession:
                 torch.as_tensor(cols, device=dev),
                 torch.as_tensor(vals.astype(np.int32), device=dev),
                 block=B)
-        seed = h_prev = None
-        if variant == "df" and not self._push:
-            batch_dev = fr.pack_batch(self.n_pad, deletions, insertions,
-                                      device=dev)
-            seed = _seed_sources(self._bmat, batch_dev, self.valid,
-                                 block_size=B)
-            h_prev = _seed_pass(self.inc.mat, seed)     # G^{t-1}
-        self.inc.advance(self.hg, None, deletions, insertions,
-                         effective=(dels_eff, ins_eff))
+        seed = h_prev = plan = None
+        if self._tiered:
+            # host tier first: patch host truth and the host aux twins, and
+            # drop residency of the touched blocks (their slab entries are
+            # stale; the admission below packs them afresh)
+            plan = self.pool.apply_delta(rows, cols, vals)
+            self.inc.aux.apply_delta(B, rows, cols, vals)
+            self.hot.invalidate(
+                plan.touched_rb,
+                structure_changed=(plan.tile_cols is not None
+                                   or plan.n_new > plan.n_old))
+        else:
+            if variant == "df" and not self._push:
+                batch_dev = fr.pack_batch(self.n_pad, deletions, insertions,
+                                          device=dev)
+                seed = _seed_sources(self._bmat, batch_dev, self.valid,
+                                     block_size=B)
+                h_prev = _seed_pass(self.inc.mat, seed)     # G^{t-1}
+            self.inc.advance(self.hg, None, deletions, insertions,
+                             effective=(dels_eff, ins_eff))
         # the push seed walks both key sets; the df/dt replay needs both
         self._hg_prev, self._r_prev = self.hg, self.R
         self._last_batch = (np.asarray(deletions, np.int64).reshape(-1, 2),
@@ -589,7 +761,16 @@ class PageRankSession:
                + np.asarray(insertions).reshape(-1, 2).shape[0])
 
         dt_syncs = 0
-        if variant == "df" and not self._push:
+        seed_idx = None
+        if variant == "df" and not self._push and self._tiered:
+            # host-side DF seed through the sorted host key sets: no device
+            # pull matrix, only the index list crosses to the device
+            raw = [np.asarray(e, np.int64).reshape(-1, 2)[:, 0]
+                   for e in (deletions, insertions)]
+            seed_idx = dist.df_seed_indices(self._hg_prev, self.hg,
+                                            np.concatenate(raw))
+            affected = self._mask_from_indices(seed_idx)
+        elif variant == "df" and not self._push:
             hit = h_prev | _seed_pass(self.inc.mat, seed)       # ∪ G^t
             affected = _seed_mask(hit, seed, self.valid, block_size=B)
         elif variant == "dt":
@@ -598,8 +779,19 @@ class PageRankSession:
                 g_prev_snap, g_new_snap,
                 fr.batch_to_device(g_new_snap, deletions, insertions))
             self._dt_bfs = (hops, dt_syncs)
+        want_rb = None
+        if self._tiered:
+            # frontier-biased admission before the drive: the touched
+            # blocks, the seed blocks and their tile-adjacent candidates
+            # (the first expansion wave), in one batch
+            want = [np.asarray(plan.touched_rb, np.int64)]
+            if seed_idx is not None and len(seed_idx):
+                srb = np.unique(seed_idx // B)
+                want += [srb,
+                         np.nonzero(self.inc.aux.bmat[:, srb].any(axis=1))[0]]
+            want_rb = np.concatenate(want)
         R, stats, extras, syncs = self._solve(variant, affected, sources,
-                                              deg_old_src)
+                                              deg_old_src, want_rb=want_rb)
         self.R = R
         return StreamBatchResult(
             ranks=R, stats=stats, wall_time_s=time.perf_counter() - t0,
@@ -743,7 +935,9 @@ class PageRankSession:
         if variant in ("static", "nd"):
             if self._stream:
                 t0 = time.perf_counter()
-                R, stats, _, _ = self._solve(variant)
+                R, stats, _, _ = self._solve(
+                    variant, want_rb=(np.arange(self.n_rb) if self._tiered
+                                      else None))
                 self.R = R
                 return PagerankResult(ranks=R, stats=stats,
                                       wall_time_s=time.perf_counter() - t0)
@@ -767,8 +961,10 @@ class PageRankSession:
             affected = fr.dt_affected(g_prev, g_cur, batch_dev)
         R0 = pad_ranks(g_cur, self._r_prev)
         mat = aux = None
-        if self._stream:
-            # reuse the incrementally maintained operands
+        if self._stream and not self._tiered:
+            # reuse the incrementally maintained operands; a tiered session
+            # holds only a partial device view, so its replay (an O(m)
+            # what-if path) builds a full throwaway matrix instead
             mat, aux = self.inc.mat, self.inc.aux
         return self._converge(R0, affected, expand=(variant == "df"),
                               g=g_cur, mat=mat, aux=aux)
@@ -851,7 +1047,8 @@ class PageRankSession:
         for attr in ("R", "inc", "g", "valid", "_out_deg", "_rb_in",
                      "_rb_out", "_bmat", "_fault_tables", "_residual",
                      "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev",
-                     "store", "_process_domain"):
+                     "store", "_process_domain", "pool", "hot",
+                     "_deferred_rb"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -988,11 +1185,18 @@ class PageRankSession:
                 setattr(new, attr, t.clone())
         if self.inc is not None:
             aux = self.inc.aux
-            new.inc = IncrementalPullMatrix(
-                self.inc.mat.clone(),
-                MatrixAux(bmat=aux.bmat.copy(), rb_in=aux.rb_in.copy(),
-                          rb_out=aux.rb_out.copy())
-                if aux is not None else None)
+            aux = (MatrixAux(bmat=aux.bmat.copy(), rb_in=aux.rb_in.copy(),
+                             rb_out=aux.rb_out.copy())
+                   if aux is not None else None)
+            if self._tiered:
+                # both tiers branch: the host pool copies, the hot set forks
+                # over the copy (its packed slab cloned)
+                new.pool = self.pool.copy()
+                new.hot = self.hot.fork(new.pool)
+                new._deferred_rb = None
+                new.inc = IncrementalPullMatrix(new.hot.view(), aux)
+            else:
+                new.inc = IncrementalPullMatrix(self.inc.mat.clone(), aux)
             new._out_deg_host = self._out_deg_host.copy()
         return new
 
@@ -1007,7 +1211,15 @@ class PageRankSession:
         self._ensure_open()
         if self._stream:
             z = np.zeros(1, np.int64)
-            self.inc.mat = ops.apply_delta(self.inc.mat, z, z, np.zeros(1))
+            if self._tiered:
+                # the host-tier delta path and the invalidate → re-admit
+                # pack, with a zero value: state is unperturbed
+                self.pool.apply_delta(z, z, np.zeros(1))
+                self.hot.invalidate(z)
+                self._admit(z)
+            else:
+                self.inc.mat = ops.apply_delta(self.inc.mat, z, z,
+                                               np.zeros(1))
             if self._push:
                 pshe.scatter_residual(self._residual, z, np.zeros(1))
             empty = np.zeros((0, 2), np.int64)
@@ -1056,7 +1268,9 @@ class PageRankSession:
             residual_mass_last=next((r.residual_mass for r in reversed(hist)
                                      if r.residual_mass is not None), None),
             pushed_blocks=(sum(r.pushed_blocks for r in hist)
-                           if self._push and hist else None))
+                           if self._push and hist else None),
+            tiering=(self.hot.stats() if self._tiered and self.hot is not None
+                     else None))
 
     def _device_bytes(self) -> Optional[dict]:
         """Per-component device-resident bytes (the memory audit)."""
@@ -1071,11 +1285,15 @@ class PageRankSession:
                     if isinstance(getattr(g, f.name), torch.Tensor)),
             }
         mat = self.inc.mat
+        # tiered: the view holds no dense tiles (tile_pool 0), the packed
+        # slab is packed_index, and rb_res joins the slot tables
         return {
             "ranks": self.R.nbytes + self.valid.nbytes,
             "tile_pool": mat.tiles.nbytes,
             "packed_index": mat.index.nbytes,
-            "slot_tables": mat.tile_cols.nbytes + mat.tile_idx.nbytes,
+            "slot_tables": (mat.tile_cols.nbytes + mat.tile_idx.nbytes
+                            + (self.hot.rb_res.nbytes if self._tiered
+                               else 0)),
             "operand_mirrors": (self._out_deg.nbytes + self._rb_in.nbytes
                                 + self._rb_out.nbytes + self._bmat.nbytes),
             "residual": (self._residual.nbytes if self._residual is not None

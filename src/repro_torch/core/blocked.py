@@ -138,8 +138,9 @@ def run_blocked(g: GraphSnapshot, R0: torch.Tensor, affected0: torch.Tensor,
     ``pager`` (the reference's tiered ``EdgePager``) is not ported yet."""
     if pager is not None:
         raise NotImplementedError(
-            "run_blocked(pager=) is not ported yet: ROADMAP item A 10 "
-            "(tiered storage) brings the EdgePager")
+            "run_blocked(pager=) is not ported yet: ROADMAP item A 10b "
+            "(tiered storage: the push refill and the EdgePager) brings "
+            "it")
     if mode not in ("lf", "bb"):
         raise ValueError(mode)
     if active_policy not in ("affected", "rc"):

@@ -1,8 +1,9 @@
 """Fused frontier engine — the DF_LF sweep loop on the card.
 
-Ports the untiered part of ``src/repro/core/pallas_engine.py``
-(``build_pull_matrix``, ``_driver``, ``_stats_from_vec``, ``run_pallas``
-and the registry adapter ``PallasEngine`` / ``as_engine``).
+Ports ``src/repro/core/pallas_engine.py``: ``build_pull_matrix``,
+``_driver`` (with the tiered session's ``rb_res``/``deferred`` operands),
+``_stats_from_vec``, ``run_pallas`` and the registry adapter
+``PallasEngine`` / ``as_engine``.
 The pull runs through the tile SpMV over compacted active row-blocks (sum
 semiring, kernel #2), Dynamic Frontier expansion is the same kernel in the
 OR semiring over the candidate row-blocks whose tiles meet a changed
@@ -54,10 +55,19 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
             rb_out, bmat, alpha, tau, tau_f, part_table, alive_table,
             delay_table, crashed_any, *, n: int, block_size: int, mode: str,
             expand: bool, active_policy: str, max_iterations: int,
-            full: bool = False) -> Tuple[torch.Tensor, np.ndarray, int]:
+            full: bool = False, rb_res: Optional[torch.Tensor] = None,
+            tiered: bool = False) -> Tuple[torch.Tensor, np.ndarray, int]:
     """The fused loop.  Returns (ranks [n_pad], host stats vector [7],
     host syncs made).  ``alpha``/``tau``/``tau_f`` are 0-d tensors (runtime
     operands); the fault tables are tensors on the ranks' device.
+
+    ``tiered=True`` (:mod:`repro_torch.core.tiering`): ``mat`` is the hot
+    slab's view and ``rb_res`` [n_rb] marks the resident row-blocks.  A
+    non-resident block is never swept: seeds in it are deferred before the
+    loop, and expansion candidates in it are deferred instead of pulled.
+    The deferred indicator rides the poll — the stats vector then holds
+    ``7 + n_rb`` entries, the last ``n_rb`` being the indicator (0/1) — so
+    it costs no host sync of its own.
 
     ``full=True`` is the caller's promise that every row-block is active in
     every sweep — true of the all-affected solves (cold start, ``nd``,
@@ -88,8 +98,14 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
     def vexp(block_flags):
         return block_flags[:, None].expand(n_rb, B).reshape(-1)
 
+    deferred = None
     R = torch.where(valid, R0[:n_pad], zero)
     affected = affected0[:n_pad] & valid
+    if tiered:
+        # seeds in non-resident blocks are deferred wholesale before the loop
+        res_v = vexp(rb_res)
+        deferred = fr.block_any(affected & ~res_v, n_rb, B)
+        affected = affected & res_v
     RC = affected.clone()
     it = torch.zeros((), dtype=torch.long, device=dev)
     converged = f_false.clone()
@@ -101,7 +117,7 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
     sim = torch.zeros((), dtype=torch.float32, device=dev)
 
     def sweep():
-        nonlocal R, affected, RC, it, converged, dnf
+        nonlocal R, affected, RC, it, converged, dnf, deferred
         nonlocal sweeps, iters, blocks, edges, sim
         go = ~converged & ~dnf & (it < max_iterations)
         it_c = it.clamp(max=max_iterations - 1)
@@ -140,6 +156,10 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
             changed = upd & (dr > tau_f_c)
             ch_cb = fr.block_any(changed, n_rb, B)
             cand_rb = (bmat & ch_cb[None, :]).any(dim=1)
+            if tiered:
+                # candidates off the device: defer, never pull
+                deferred = deferred | (cand_rb & ~rb_res & do)
+                cand_rb = cand_rb & rb_res
             n_cand = torch.where(do, cand_rb.sum(), 0)
             cids = torch.where(do, fr.compact_block_ids(cand_rb, n_rb), -1)
             hitf = ops.block_spmv_active_bucketed(
@@ -209,10 +229,12 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
         done = converged | dnf | (it >= max_iterations)
         sv = torch.stack([sweeps, iters, blocks, edges, sim.to(cdt),
                           converged.to(cdt), dnf.to(cdt), done.to(cdt)])
+        if tiered:
+            sv = torch.cat([sv, deferred.to(cdt)])
         sv = sv.cpu().numpy()          # the poll: one sync per chunk
         syncs += 1
         if sv[7] > 0:
-            return R, sv[:7], syncs
+            return R, np.concatenate([sv[:7], sv[8:]]), syncs
 
 
 def _stats_from_vec(sv: np.ndarray) -> SweepStats:

@@ -11,9 +11,17 @@ Differences from the reference: ``device="cuda"`` by default, as every
 entry point of the port; the engine options are ``EngineConfig``'s own
 (given as ``config=`` or as its keyword fields, ``driver=`` among them)
 rather than a copy of them; no ``interpret``/``backend`` (the tensors'
-device picks kernel or plain version), and no re-exports of session
-internals.  A durable stream takes ``durability="wal"`` among the fields
-and its store as ``store_dir=``.
+device picks kernel or plain version).  A durable stream takes
+``durability="wal"`` among the fields and its store as ``store_dir=``.
+
+As in the reference, the runner forwards the session state it holds
+(``hg``, ``R``, ``inc``, ``valid``, ``n``, ``n_pad``, ``block_size``,
+``n_rb``, ``mode``, ``active_policy``, ``max_iterations`` and the operand
+mirrors ``_out_deg``, ``_rb_in``, ``_rb_out``, ``_bmat``), and the module
+re-exports ``StreamBatchResult``, ``_seed_affected`` and
+``_apply_operand_delta`` of :mod:`repro_torch.api.session`, resolved
+lazily (PEP 562) because the session module imports this package.  The
+reference's ``_driver_cache_size`` (a jit-cache size) has no counterpart.
 """
 from __future__ import annotations
 
@@ -29,7 +37,18 @@ from repro_torch.core.graph import HostGraph
 if TYPE_CHECKING:
     from repro_torch.api.session import StreamBatchResult
 
-__all__ = ["StreamRunner", "StreamReport", "run_stream"]
+__all__ = ["StreamRunner", "StreamBatchResult", "StreamReport", "run_stream",
+           "_seed_affected", "_apply_operand_delta"]
+
+_SESSION_EXPORTS = ("StreamBatchResult", "_seed_affected",
+                    "_apply_operand_delta")
+
+
+def __getattr__(name: str):
+    if name in _SESSION_EXPORTS:
+        from repro_torch.api import session
+        return getattr(session, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclasses.dataclass
@@ -83,6 +102,67 @@ class StreamRunner:
              ) -> StreamBatchResult:
         """Apply one edge batch and reconverge."""
         return self.session.update(deletions, insertions)
+
+    # -- state passthroughs (the session owns the stream state) -------------
+    @property
+    def hg(self) -> HostGraph:
+        return self.session.hg
+
+    @property
+    def R(self) -> torch.Tensor:
+        return self.session.R
+
+    @property
+    def inc(self):
+        return self.session.inc
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.session.valid
+
+    @property
+    def n(self) -> int:
+        return self.session.n
+
+    @property
+    def n_pad(self) -> int:
+        return self.session.n_pad
+
+    @property
+    def block_size(self) -> int:
+        return self.session.block_size
+
+    @property
+    def n_rb(self) -> int:
+        return self.session.n_rb
+
+    @property
+    def mode(self) -> str:
+        return self.session.config.mode
+
+    @property
+    def active_policy(self) -> str:
+        return self.session.config.active_policy
+
+    @property
+    def max_iterations(self) -> int:
+        return self.session.config.max_iterations
+
+    @property
+    def _out_deg(self) -> torch.Tensor:
+        return self.session._out_deg
+
+    @property
+    def _rb_in(self) -> torch.Tensor:
+        return self.session._rb_in
+
+    @property
+    def _rb_out(self) -> torch.Tensor:
+        return self.session._rb_out
+
+    @property
+    def _bmat(self) -> torch.Tensor:
+        return self.session._bmat
 
 
 def run_stream(hg0: HostGraph,

@@ -229,14 +229,40 @@ block_spmv_active_cuda.launches = 0
 _PLAIN_GATHER_BYTES = 1 << 26    # bound on one gathered [k, g, B, B] group
 
 
+def _unpack(index, ids: torch.Tensor, block: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Dense tiles ``[*ids.shape, B, B]`` of the tile ids ``ids`` rebuilt
+    from the packed ``index`` (the plain versions' reading of a matrix that
+    holds no dense tiles, as the tiered slab view)."""
+    u = ids.reshape(-1).long()
+    cnt = index.cnt[u].long()
+    out = torch.zeros(u.shape[0] * block * block, dtype=dtype,
+                      device=ids.device)
+    total = int(cnt.sum())
+    if total:
+        owner = torch.repeat_interleave(
+            torch.arange(u.shape[0], device=ids.device), cnt)
+        first = (cnt.cumsum(0) - cnt)[owner]
+        pos = (index.off[u].long()[owner]
+               + torch.arange(total, device=ids.device) - first)
+        at = ((owner * block + index.row[pos].long()) * block
+              + index.col[pos].long())
+        out[at] = index.val[pos].to(dtype)
+    return out.reshape(*ids.shape, block, block)
+
+
 def _rows_plain(rb: torch.Tensor, tile_idx: torch.Tensor,
                 tile_cols: torch.Tensor, tiles: torch.Tensor,
                 x: torch.Tensor, block: int, max_tiles: int,
-                semiring: str) -> torch.Tensor:
+                semiring: str, index=None,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[len(rb), B] products of the listed row-blocks: gather a group of
     slots' tiles and x-slices, batched matvec, fold into the accumulator.
     Groups of slots are sized so one gather stays under 64 MB whatever
-    ``len(rb)`` and ``max_tiles`` are."""
+    ``len(rb)`` and ``max_tiles`` are.  A zero-size ``tiles`` with an
+    ``index`` reads each gathered tile from the packed index instead, and
+    then only for the rows ``live`` marks (the others come back as zero;
+    the groups stay those of all ``len(rb)`` rows)."""
     if semiring not in SEMIRINGS:
         raise ValueError(f"semiring={semiring!r}; expected one of "
                          f"{SEMIRINGS}")
@@ -248,11 +274,21 @@ def _rows_plain(rb: torch.Tensor, tile_idx: torch.Tensor,
     acc = torch.zeros(k, block, dtype=acc_t, device=x.device)
     tile_bytes = block * block * torch.finfo(acc_t).bits // 8
     g = max(1, min(max_tiles, _PLAIN_GATHER_BYTES // max(1, k * tile_bytes)))
+    packed = tiles.shape[0] == 0 and index is not None
+    if packed:
+        sel = (torch.arange(k, device=x.device) if live is None
+               else live.nonzero().squeeze(1))
     for j in range(0, max_tiles, g):
         c = cols[:, j:j + g]
         X = torch.where((c >= 0)[..., None], xb[c.clamp(min=0)], 0)
-        T = tiles[idx[:, j:j + g]].to(acc_t)              # [k, g, B, B]
-        part = torch.matmul(T, X[..., None])[..., 0]       # [k, g, B]
+        if packed:
+            part = torch.zeros(k, c.shape[1], block, dtype=acc_t,
+                               device=x.device)
+            T = _unpack(index, idx[sel, j:j + g], block, acc_t)
+            part[sel] = torch.matmul(T, X[sel][..., None])[..., 0]
+        else:
+            T = tiles[idx[:, j:j + g]].to(acc_t)          # [k, g, B, B]
+            part = torch.matmul(T, X[..., None])[..., 0]   # [k, g, B]
         if semiring == "sum":
             acc += part.sum(dim=1)
         else:
@@ -264,26 +300,30 @@ def _rows_plain(rb: torch.Tensor, tile_idx: torch.Tensor,
 
 def block_spmv_plain(tile_idx: torch.Tensor, tile_cols: torch.Tensor,
                      tiles: torch.Tensor, x: torch.Tensor, *, block: int,
-                     max_tiles: int, semiring: str = "sum") -> torch.Tensor:
+                     max_tiles: int, semiring: str = "sum",
+                     index=None) -> torch.Tensor:
     """Plain version of :func:`block_spmv_cuda` (the analogue of
-    ``ops._block_spmv_xla``)."""
+    ``ops._block_spmv_xla``).  With no dense tiles (a zero-size ``tiles``)
+    it reads the packed ``index``."""
     n_rb = tile_cols.shape[0]
     rb = torch.arange(n_rb, device=x.device)
     return _rows_plain(rb, tile_idx, tile_cols, tiles, x, block, max_tiles,
-                       semiring).reshape(-1)
+                       semiring, index).reshape(-1)
 
 
 def block_spmv_active_plain(active_ids: torch.Tensor, tile_idx: torch.Tensor,
                             tile_cols: torch.Tensor, tiles: torch.Tensor,
                             x: torch.Tensor, *, block: int, max_tiles: int,
-                            semiring: str = "sum") -> torch.Tensor:
+                            semiring: str = "sum", index=None
+                            ) -> torch.Tensor:
     """Plain version of :func:`block_spmv_active_cuda` (the analogue of
     ``ops._block_spmv_active_xla``).  Rows of blocks outside the list come
-    back as zero here; callers must not rely on that."""
+    back as zero here; callers must not rely on that.  With no dense tiles
+    it reads the packed ``index``."""
     n_rb = tile_cols.shape[0]
     ids = active_ids.long()
     y = _rows_plain(ids.clamp(min=0), tile_idx, tile_cols, tiles, x, block,
-                    max_tiles, semiring)
+                    max_tiles, semiring, index, live=ids >= 0)
     out = torch.zeros(n_rb + 1, block, dtype=x.dtype, device=x.device)
     out[torch.where(ids >= 0, ids, n_rb)] = y      # −1 slots → trash row
     return out[:n_rb].reshape(-1)
@@ -305,23 +345,25 @@ def _route(x: torch.Tensor) -> str:
 def tile_spmv(tile_idx, tile_cols, tiles, x, *, block: int, max_tiles: int,
               semiring: str = "sum", index=None) -> torch.Tensor:
     """Kernel #1 over ``index`` on a CUDA ``x``, its plain version over
-    ``tiles`` on a CPU ``x``."""
+    ``tiles`` on a CPU ``x`` (over ``index`` when ``tiles`` is empty)."""
     if _route(x) == "cuda":
         return block_spmv_cuda(tile_idx, tile_cols, index, x, block=block,
                                max_tiles=max_tiles, semiring=semiring)
     return block_spmv_plain(tile_idx, tile_cols, tiles, x, block=block,
-                            max_tiles=max_tiles, semiring=semiring)
+                            max_tiles=max_tiles, semiring=semiring,
+                            index=index)
 
 
 def tile_spmv_active(active_ids, tile_idx, tile_cols, tiles, x, *,
                      block: int, max_tiles: int, semiring: str = "sum",
                      index=None, n_active=None) -> torch.Tensor:
     """Kernel #2 over ``index`` on a CUDA ``x`` (stopping at the device
-    count ``n_active``), its plain version over ``tiles`` on a CPU ``x``."""
+    count ``n_active``), its plain version over ``tiles`` on a CPU ``x``
+    (over ``index`` when ``tiles`` is empty)."""
     if _route(x) == "cuda":
         return block_spmv_active_cuda(
             active_ids, tile_idx, tile_cols, index, x, block=block,
             max_tiles=max_tiles, semiring=semiring, n_active=n_active)
     return block_spmv_active_plain(active_ids, tile_idx, tile_cols, tiles, x,
                                    block=block, max_tiles=max_tiles,
-                                   semiring=semiring)
+                                   semiring=semiring, index=index)

@@ -168,6 +168,10 @@ def build_index(tiles: torch.Tensor) -> PackedIndex:
     in steps of :data:`INDEX_CHUNK_ELEMS` dense elements.  One host sync:
     the per-tile counts, which size the entry pool (the live entries plus
     a quarter, at least one tile's worth, on :func:`capacity_bucket`)."""
+    if not isinstance(tiles, torch.Tensor):
+        raise TypeError(
+            "build_index packs a device tile pool; the host-tier layout "
+            "(build_block_sparse(to_device=False)) has no packed index")
     cap, B, _ = tiles.shape
     dev = tiles.device
     step = max(1, INDEX_CHUNK_ELEMS // (B * B))
@@ -256,7 +260,13 @@ class BlockSparse:
     index: Optional[PackedIndex] = None
 
     def __post_init__(self):
-        if self.index is None:
+        if isinstance(self.tiles, np.ndarray):
+            # the host-tier layout (build_block_sparse(to_device=False))
+            if self.index is not None:
+                raise ValueError("the host-tier layout holds no packed "
+                                 "index; the CUDA kernels read a device "
+                                 "matrix's")
+        elif self.index is None:
             self.index = build_index(self.tiles)
 
     @property
@@ -332,7 +342,7 @@ def build_block_sparse(rows: np.ndarray, cols: np.ndarray, n_rows: int,
                        n_cols: int, *, block: int = 128,
                        values: Optional[np.ndarray] = None,
                        dtype=torch.float32, padded: bool = False,
-                       device="cuda") -> BlockSparse:
+                       device="cuda", to_device: bool = True) -> BlockSparse:
     """Build tiles from an edge list: A[rows[k], cols[k]] = values[k] (or 1);
     duplicate coordinates add.
 
@@ -340,8 +350,14 @@ def build_block_sparse(rows: np.ndarray, cols: np.ndarray, n_rows: int,
     ``device`` and filled by one scatter there, so the pool never exists in
     host memory.  ``padded=True`` preallocates the pool and the slot tables
     on the growth ladder (:func:`capacity_bucket`), the layout a dynamic
-    stream uses."""
-    dev = resolve_device(device)
+    stream uses.
+
+    ``to_device=False`` builds the reference's numpy layout instead — the
+    host tier of :mod:`repro_torch.core.tiering`: the tile pool (filled by
+    one ``np.add.at``) and both slot tables are numpy arrays
+    (``tile_cols_h``/``tile_idx_h`` are the same arrays), nothing is placed
+    on a device and no packed index is built (``device`` is not
+    consulted)."""
     dt = as_torch_dtype(dtype)
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
@@ -360,12 +376,17 @@ def build_block_sparse(rows: np.ndarray, cols: np.ndarray, n_rows: int,
     cap = capacity_bucket(n_tiles) if padded else n_tiles
     tpos = np.searchsorted(uniq, key)
     flat = tpos * (block * block) + (rows % block) * block + (cols % block)
-    tiles = torch.zeros((cap, block, block), dtype=dt, device=dev)
-    if len(flat):
-        # values cast to the tile dtype first, as the JAX builder adds them
-        v = torch.from_numpy(vals).to(dt)
-        tiles.view(-1).index_add_(0, torch.from_numpy(flat).to(dev),
-                                  v.to(dev))
+    # values cast to the tile dtype first, as the JAX builder adds them
+    if to_device:
+        dev = resolve_device(device)
+        tiles = torch.zeros((cap, block, block), dtype=dt, device=dev)
+        if len(flat):
+            tiles.view(-1).index_add_(0, torch.from_numpy(flat).to(dev),
+                                      torch.from_numpy(vals).to(dt).to(dev))
+    else:
+        np_dt = torch.empty(0, dtype=dt).numpy().dtype
+        tiles = np.zeros((cap, block, block), dtype=np_dt)
+        np.add.at(tiles.reshape(-1), flat, vals.astype(np_dt))
 
     tiles_rb = (uniq // n_cb).astype(np.int64)
     tiles_cb = (uniq % n_cb).astype(np.int64)
@@ -376,8 +397,22 @@ def build_block_sparse(rows: np.ndarray, cols: np.ndarray, n_rows: int,
         min_mt = capacity_bucket(int(per_row.max(initial=1)), SLOT_CAP_BASE)
     tile_cols, tile_idx, max_tiles = _slot_tables(tiles_rb, tiles_cb, n_rb,
                                                   min_max_tiles=min_mt)
+    if not to_device:
+        return host_block_sparse(n_rows, n_cols, block, max_tiles, tiles,
+                                 tile_cols, tile_idx.reshape(-1))
     return _from_tables(n_rows, n_cols, block, max_tiles, tiles, tile_cols,
                         tile_idx)
+
+
+def host_block_sparse(n_rows: int, n_cols: int, block: int, max_tiles: int,
+                      tiles: np.ndarray, tile_cols: np.ndarray,
+                      tile_idx: np.ndarray) -> BlockSparse:
+    """A host-tier ``BlockSparse`` over numpy arrays (no index, no
+    device); the host twins are the tables themselves."""
+    return BlockSparse(
+        n_rows=n_rows, n_cols=n_cols, block=block, max_tiles=max_tiles,
+        tiles=tiles, tile_cols=tile_cols, tile_idx=tile_idx,
+        tile_cols_h=tile_cols, tile_idx_h=tile_idx)
 
 
 @dataclasses.dataclass

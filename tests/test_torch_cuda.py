@@ -3,8 +3,9 @@ their plain PyTorch versions (reading the dense tiles), the index refresh on
 the card, a stream on the card against the same stream on the CPU (pull and
 push drivers), the push path's residual scatter, host syncs and masking
 of the kernel's undefined rows, and the variant matrix (dt, the replays,
-snapshot mode, the dense engine) on the card against the CPU, and the blocked
-engine's Gauss–Seidel sweep kernel against its plain version.
+snapshot mode, the dense engine) on the card against the CPU, the blocked
+engine's Gauss–Seidel sweep kernel against its plain version, and a tiered
+session (the kernels reading the packed hot slab) against the CPU.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -621,3 +622,88 @@ def test_cuda_thread_domain_session_equals_faults(cuda_device):
     assert res["faults"][0].converged
     assert float((res["faults"][1] - res["cpu"][1]).abs().max()) <= \
         TOLS[torch.float64]
+
+
+def _tiered_pair(cuda_device, frac):
+    """The same tiered stream on the card and on the CPU (f64, a fraction
+    ``frac`` of the host pool's bytes as the budget)."""
+    from repro_torch.api import EngineConfig, PageRankSession
+    from repro_torch.core import tiering
+    from repro_torch.graphs.generators import grid_road
+    hg = grid_road(32, seed=7)
+    g0 = hg.snapshot(block_size=64, device="cpu")
+    src, dst = g0.in_edges_host()
+    pool = tiering.HostTilePool.from_edges(dst, src, g0.n_pad, g0.n_pad,
+                                           block=64, dtype=np.float64)
+    cfg = EngineConfig(block_size=64, tau=1e-10,
+                       device_budget_bytes=int(pool.nbytes * frac))
+    rng = np.random.default_rng(11)
+    stream = [(np.zeros((0, 2), np.int64), rng.integers(0, hg.n, (16, 2)))
+              for _ in range(3)]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        sess = PageRankSession.from_graph(hg, config=cfg, device=dev)
+        sess.warmup()
+        res = [sess.update(d, i) for d, i in stream]
+        out.append((sess, res))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [1.0, 0.5])
+def test_cuda_tiered_session_matches_cpu(cuda_device, frac):
+    """A tiered session on the card (the kernels reading the packed slab)
+    against the same session on the CPU: the tiering counters, sweeps and
+    edges equal, the ranks within 1e-12, no dense tile on the card."""
+    (gs, gres), (cs, cres) = _tiered_pair(cuda_device, frac)
+    launches = bsk.block_spmv_active_cuda.launches
+    gt, ct = gs.report().tiering, cs.report().tiering
+    for k in ("hits", "misses", "evictions", "admitted_tiles",
+              "transfer_bytes", "refill_drives", "refill_stalls",
+              "resident_blocks"):
+        assert gt[k] == ct[k], k
+    assert [r.stats.sweeps for r in gres] == [r.stats.sweeps for r in cres]
+    assert [r.stats.edges_processed for r in gres] == \
+        [r.stats.edges_processed for r in cres]
+    assert np.abs(gs.ranks - cs.ranks).max() <= 1e-12
+    assert gs.report().device_bytes["tile_pool"] == 0
+    assert gs.hot.scrub() == []
+    assert launches > 0
+    if frac < 1.0:
+        assert gt["evictions"] > 0 and gt["refill_drives"] > 0
+    gs.close(), cs.close()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_read_the_slab_view(cuda_device):
+    """Both kernels over a half-budget session's slab view (slab-slot tile
+    ids, a packed index keyed by slot, no dense tiles) against their plain
+    versions over the same view, and on the resident rows against the
+    untiered matrix."""
+    (gs, _), (cs, _) = _tiered_pair(cuda_device, 0.5)
+    view = gs.inc.mat
+    assert view.tiles.shape[0] == 0
+    full = tops.build_block_sparse(*cs.hg.snapshot(
+        block_size=64, device="cpu").in_edges_host()[::-1], view.n_rows,
+        view.n_cols, block=64, dtype=torch.float64, padded=True,
+        device=cuda_device)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random(view.n_cols)).to(cuda_device)
+    rows = torch.repeat_interleave(gs.hot.rb_res, 64)
+    for semiring in ("sum", "or"):
+        xs = x if semiring == "sum" else (x < 0.2).double()
+        kw = dict(block=64, max_tiles=view.max_tiles, semiring=semiring)
+        got = bsk.block_spmv_cuda(view.tile_idx, view.tile_cols, view.index,
+                                  xs, **kw)
+        plain = bsk.block_spmv_plain(view.tile_idx, view.tile_cols,
+                                     view.tiles, xs, index=view.index, **kw)
+        torch.testing.assert_close(got, plain, rtol=1e-12, atol=1e-12)
+        ref = tops.block_spmv(full, xs, semiring=semiring)
+        torch.testing.assert_close(got[rows], ref[rows], rtol=1e-12,
+                                   atol=1e-12)
+        ids = torch.nonzero(gs.hot.rb_res).squeeze(1).to(torch.int32)
+        act = bsk.block_spmv_active_cuda(ids, view.tile_idx, view.tile_cols,
+                                         view.index, xs, **kw)
+        torch.testing.assert_close(act[rows], ref[rows], rtol=1e-12,
+                                   atol=1e-12)
+    gs.close(), cs.close()

@@ -180,18 +180,25 @@ class _ProcessDomain(FaultDomain):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"device_budget_bytes": 1 << 20}, "A 10"),
+    # a pull stream with a budget runs since A 10a; the push refill is A 10b
+    ({"driver": "push", "device_budget_bytes": 1 << 20}, "A 10"),
     ({"topology": "sharded"}, "A 14"),
     ({"walks_per_vertex": 4}, "A 13"),
     ({"walk_length": 8}, "A 13"),
     ({"walk_seed": 1}, "A 13"),
-    # durability="wal" runs since A 9; the tiered store still refuses on it
-    ({"durability": "wal", "device_budget_bytes": 1 << 20}, "A 10"),
+    # durability="wal" runs since A 9 and tiers under the pull driver since
+    # A 10a; a durable push stream with a budget still refuses
+    ({"durability": "wal", "driver": "push", "device_budget_bytes": 1 << 20},
+     "A 10"),
     ({"integrity": {"mass_tol": 1e-6}}, "A 11"),
     ({"fault_domain": _ProcessDomain()}, "A 11"),
     # the blocked engine and the dense engine's LF mode run since A 7; the
     # later axes still refuse on them
-    ({"engine": "blocked", "device_budget_bytes": 1 << 20}, "A 10"),
+    # a budget on the blocked engine gets the reference's ValueError
+    # (test_budget_config_rules); naming the pallas engine outright still
+    # meets the push refill's refusal
+    ({"engine": "pallas", "driver": "push", "device_budget_bytes": 1 << 20},
+     "A 10"),
     ({"engine": "dense", "fault_domain": _ProcessDomain()}, "A 11"),
     ({"engine": "walk"}, "A 13"),
     ({"engine": "distributed"}, "A 14"),
@@ -199,6 +206,27 @@ class _ProcessDomain(FaultDomain):
 def test_out_of_slice_config_raises(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TConfig(**kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"engine": "blocked", "device_budget_bytes": 1 << 20},
+     "streaming pallas"),
+    ({"engine": "dense", "mode": "bb", "device_budget_bytes": 1 << 20},
+     "streaming pallas"),
+    ({"topology": "sharded", "device_budget_bytes": 1 << 20},
+     "cannot compose"),
+    ({"device_budget_bytes": 0}, "positive integer"),
+    ({"device_budget_bytes": True}, "positive integer"),
+])
+def test_budget_config_rules(kw, match):
+    """The reference's ValueErrors for a budget outside a pallas stream,
+    for the JAX config and the port's alike."""
+    with pytest.raises(ValueError, match=match):
+        JConfig(**kw)
+    with pytest.raises(ValueError, match=match):
+        TConfig(**kw)
+    assert TConfig(device_budget_bytes=1 << 20).device_budget_bytes \
+        == 1 << 20
 
 
 def test_config_validation_and_backend_rule():

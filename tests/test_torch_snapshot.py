@@ -187,13 +187,17 @@ class TestEngineConfig:
         assert TConfig().mode == "lf"
 
     @pytest.mark.parametrize("kw,err,match", [
-        ({"engine": "dense", "mode": "lf", "device_budget_bytes": 1 << 20},
-         NotImplementedError, "A 10"),
+        # a budget with the dense engine gets the reference's ValueError;
+        # the refusal left is the push driver's refill loop (A 10b)
+        ({"engine": "pallas", "driver": "push",
+          "device_budget_bytes": 1 << 20}, NotImplementedError, "A 10"),
         ({"engine": "blocked", "mode": "lf", "driver": "push"}, ValueError,
          "pallas"),
         ({"engine": "dense", "mode": "bb", "driver": "push"}, ValueError,
          "pallas"),
         ({"engine": "not-an-engine"}, ValueError, "registered engines"),
+        ({"engine": "dense", "mode": "lf", "device_budget_bytes": 1 << 20},
+         ValueError, "streaming pallas"),
     ])
     def test_engine_rules(self, kw, err, match):
         with pytest.raises(err, match=match):
