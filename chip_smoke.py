@@ -76,7 +76,13 @@ Phases, each of which raises (non-zero exit) on any failed check:
    time.  Then the sweep kernel against its plain
    version (LF and BB, on the card) over all 16,384 slots of a cold start
    and over the compacted DF frontier of the first batch, timed beside its
-   bound;
+   bound.  Then the paged run: a DF solve (LF, ``active_policy="rc"``) of 16
+   local insertions, unpaged, then through a pager holding every block
+   with each sweep's active set recorded, and through an ``EdgePager``
+   whose budget holds the largest of those sets and no more (below the
+   snapshot's edge bytes) over ``paged_snapshot``: bit-equal, with misses; its pager counters and ms a sweep beside the
+   unpaged; and the paged sweep kernel on the first active set against its
+   plain version and, bit for bit, against the unpaged kernel;
 9. durability on phase 3's graph and batches, with the launch counters
    zeroed just before the restore and read at the end: a child process
    (``chip_smoke.py --durable-child DIR``) opens phase 3's session durable
@@ -109,12 +115,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    prints the card memory beside phase 3's session's, the host pool's bytes
    and build time, the cold solve's refill rounds, ``df`` p50/p95, host
    syncs and host admission time per update, ``report().device_bytes`` and
+   ``report().tiering``;
+11. the tiered push path (``driver="push"`` with ``device_budget_bytes``
+   half the host pool's bytes) on phase 3's graph and batches, after phase
+   10's sessions are closed, with the launch counters zeroed just before
+   and read at the end: a session warm-started from phase 3's opening
+   ranks (its residual rebuilt from host truth, so no cold solve) takes
+   the 8 ``df`` batches and the ``nd`` batch (every update converged, no
+   ``SweepCapWarning``, within 1e-8 of phase 6's push ranks and of phase
+   3's oracle, the residual within 1e-12 of host truth after the last
+   batch). It prints per update the wall, sweeps, pushed blocks, edges,
+   host syncs and refill rounds, ``df`` p50/p95 beside phase 6's, the card
+   memory beside phase 6's session, ``report().device_bytes`` and
    ``report().tiering``.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
-path's (phase 8), the durable path's (phase 9) and the tiered path's
-(phase 10).  Prints the
+path's (phase 8), the durable path's (phase 9), the tiered path's
+(phase 10) and the tiered push path's (phase 11).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -794,15 +812,19 @@ def _push_redrives(bsk, sess, dels, ins) -> tuple:
 
 
 def _push_phase(bsk, ops, hg, cfg, batches, pull_df, nd_batch, ref,
-                smi: str) -> dict:
+                smi: str) -> tuple:
     """The push driver on the same graph and traffic as phase 3; returns
-    its launch counts.  Also holds and times the kernel #2 launch at the
-    push's shapes, and profiles one more push update."""
+    its launch counts and, for phase 11, its ranks after the df updates and
+    after nd, its df walls and the card memory its session held after open
+    and warmup.  Also holds and times the kernel #2 launch at the push's
+    shapes, and profiles one more push update."""
     from repro_torch.api.session import PageRankSession
     from repro_torch.core.delta import random_batch
     from repro_torch.core.push_engine import residual_from_host
     bsk.block_spmv_cuda.launches = 0
     bsk.block_spmv_active_cuda.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
     torch.cuda.synchronize()
@@ -813,6 +835,7 @@ def _push_phase(bsk, ops, hg, cfg, batches, pull_df, nd_batch, ref,
           f"launches (block_spmv, block_spmv_active) = {cold}", flush=True)
     _check(cold_maxr <= TAU, f"cold push solve left max|r| = {cold_maxr}")
     sess.warmup()
+    mem6 = torch.cuda.memory_allocated() - mem0
     df = []
     for i, ((dels, ins), pull) in enumerate(zip(batches, pull_df)):
         res = sess.update(dels, ins, variant="df")
@@ -831,6 +854,7 @@ def _push_phase(bsk, ops, hg, cfg, batches, pull_df, nd_batch, ref,
         _check(res.host_syncs == 1 + res.stats.sweeps // 8 + 1,
                f"push df update {i} made {res.host_syncs} host syncs; the "
                "floor is one p_src read and one poll per chunk")
+    r_df = sess.ranks
     nd = sess.update(*nd_batch, variant="nd")
     torch.cuda.synchronize()
     print(f"push nd update: {nd.wall_time_s * 1e3:.2f} ms, sweeps "
@@ -886,7 +910,7 @@ def _push_phase(bsk, ops, hg, cfg, batches, pull_df, nd_batch, ref,
     _profile_update(sess, random_batch)
     _device_busy(sess, random_batch)
     sess.close()
-    return launches
+    return launches, {"r_df": r_df, "r_nd": r, "df_ms": walls, "mem": mem6}
 
 
 # ---------------------------------------------------------------------------
@@ -1179,13 +1203,14 @@ def _sweep_state(R, aff):
 
 
 def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
-                  what: str) -> dict:
+                  what: str, edges=None) -> dict:
     """One LF and one BB sweep through the kernel and through its plain
     version (both on the card) from the same state: affected, RC and the
-    per-slot edges array-equal, R and maxdr within 1e-12.  Returns the
-    worst error, the LF kernel's per-slot edges, the plain LF sweep's host
-    time and the kernel's device time (mean of 3 fresh launches)."""
-    sg = blk.sweep_graph(g, R0.dtype)
+    per-slot edges array-equal, R and maxdr within 1e-12.  ``edges`` is a
+    pager's view (a paged sweep).  Returns the worst error, the LF
+    kernel's per-slot edges and final state, the plain LF sweep's host time
+    and the kernel's device time (mean of 3 fresh launches)."""
+    sg = blk.sweep_graph(g, R0.dtype, edges)
     kw = dict(n=g.n, alpha=0.85, tau=TAU, tau_f=TAU / 1000.0 if expand
               else float("inf"), tile=512, expand=expand)
     out = {"err": 0.0}
@@ -1211,6 +1236,7 @@ def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
         out["err"] = max(out["err"], err)
         if mode == "lf":
             out["edges"] = ek.cpu().numpy()
+            out["state"] = (Rk, Ak, Ck, mk, ek)
             out["plain_s"] = tp
             times = []
             for _ in range(3):
@@ -1225,6 +1251,135 @@ def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
                 times.append(start.elapsed_time(end))
             out["ms"] = float(np.mean(times))
     return out
+
+
+PAGED_BATCH_EDGES = 16      # benchmarks/scale.py's local insertion batch
+PAGED_WINDOW = 4096
+
+
+class _SetRecorder:
+    """A pager that records the active set of each ``ensure`` call and
+    stages it through the pager it wraps."""
+
+    def __init__(self, pager):
+        self.pager, self.sets = pager, []
+
+    def ensure(self, block_ids):
+        self.sets.append(np.asarray(block_ids, np.int64).copy())
+        return self.pager.ensure(block_ids)
+
+
+def _paged_run(bws, blk, hg3, g3, r_cold, smi: str) -> dict:
+    """Phase 8's paged run: a DF solve (LF, ``active_policy="rc"``,
+    τ_f = τ) of a local insertion batch on phase 3's final graph, first
+    unpaged (timed), then through a pager that holds every block, with each
+    sweep's active set recorded, then through an ``EdgePager`` whose budget
+    holds the largest of those sets and no more — below the snapshot's
+    edge bytes — over ``paged_snapshot`` from the same start (timed):
+    bit-equal, with misses.  At the default τ_f = τ / 1000 the frontier of
+    any batch reaches all 16,384 blocks, and the staging room of every
+    block (its longer slice) exceeds the snapshot's edge arrays, so no
+    smaller budget could hold it; τ_f = τ stops the expansion where a
+    change falls to τ.  Returns what :func:`_paged_sweep_parity` needs."""
+    from repro_torch.core import frontier as fr
+    from repro_torch.core import tiering
+    from repro_torch.core.graph import pad_ranks
+    rng = np.random.default_rng(900)
+    base = int(rng.integers(0, hg3.n - PAGED_WINDOW))
+    ins = base + rng.integers(0, PAGED_WINDOW, (PAGED_BATCH_EDGES, 2))
+    dels = np.zeros((0, 2), np.int64)
+    gl = hg3.apply_batch(dels, ins).snapshot(block_size=BLOCK, device="cuda")
+    aff = fr.initial_affected(g3, gl, fr.batch_to_device(gl, dels, ins))
+    R0 = pad_ranks(gl, r_cold)
+    ibp = gl.in_block_ptr.cpu().numpy().astype(np.int64)
+    obp = gl.out_block_ptr.cpu().numpy().astype(np.int64)
+    need = np.maximum(np.diff(ibp), np.diff(obp))   # a block's slab room
+    floor = int((np.diff(ibp) + np.diff(obp)).max()) + 1
+    kw = dict(mode="lf", tau=TAU, tau_f=TAU, active_policy="rc")
+    with _SweepClock(bws) as clock:
+        t0 = time.perf_counter()
+        R_u, st_u = blk.run_blocked(gl, R0, aff, **kw)
+        torch.cuda.synchronize()
+        wall_u = time.perf_counter() - t0
+    ms_u = clock.ms()
+    gp = tiering.paged_snapshot(gl)
+    sizer = _SetRecorder(tiering.EdgePager(
+        gl, 16 * max(int(need.sum()), floor)))
+    R_s, st_s = blk.run_blocked(gp, R0, aff, pager=sizer, **kw)
+    _check(bool(torch.equal(R_u, R_s)) and st_u == st_s,
+           "the blocked solve through a pager holding every block differs "
+           "from the unpaged one")
+    sets = sizer.sets
+    del sizer, R_s
+    largest = max(int(need[a].sum()) for a in sets)
+    full = 16 * gl.m_pad                     # src, dst, osrc, odst (int32)
+    budget = 16 * max(largest, floor)
+    print(f"paged DF solve ({PAGED_BATCH_EDGES} local insertions, LF, rc, "
+          f"tau_f = tau): "
+          f"active sets {min(len(a) for a in sets)}–"
+          f"{max(len(a) for a in sets)} of {gl.n_blocks} blocks over "
+          f"{st_u.sweeps} sweeps; the largest needs {largest} slab edges, "
+          f"so the budget is {budget} bytes against the snapshot's "
+          f"{full} bytes of edges ({budget / full:.3f})", flush=True)
+    _check(budget < full, "the paged run's budget is not below the "
+           "snapshot's edge bytes")
+    pager = tiering.EdgePager(gl, budget)
+    with _SweepClock(bws) as clock:
+        t0 = time.perf_counter()
+        R_p, st_p = blk.run_blocked(gp, R0, aff, pager=pager, **kw)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    ms_p = clock.ms()
+    same = bool(torch.equal(R_u, R_p)) and st_u == st_p
+    sweeps = max(st_u.sweeps, 1)
+    print(f"paged vs unpaged: bit-equal {same}; sweeps {st_p.sweeps}, "
+          f"blocks {st_p.blocks_processed}, edges {st_p.edges_processed}; "
+          f"wall {wall_p * 1e3:.1f} ms paged against {wall_u * 1e3:.1f} ms "
+          f"unpaged; sweep kernel {ms_p / sweeps:.3f} ms a sweep paged "
+          f"against {ms_u / sweeps:.3f} ms unpaged; pager {pager.stats()} "
+          f"[{smi}]", flush=True)
+    _check(same, "the paged blocked solve differs from the unpaged one")
+    _check(st_u.converged, "the paged run's DF solve did not converge")
+    _check(pager.counters["misses"] > 0, "the pager missed nothing")
+    return {"gl": gl, "gp": gp, "R0": R0, "aff": aff, "first": sets[0],
+            "budget": budget, "ibp": ibp}
+
+
+def _paged_sweep_parity(bws, blk, run: dict, smi: str) -> dict:
+    """The paged sweep kernel on the first sweep's active set of
+    :func:`_paged_run`, staged alone: against its plain version, and bit
+    for bit against the unpaged kernel from the same state.  Returns the
+    paged sweep's numbers for the kernel table."""
+    from repro_torch.core import tiering
+    gl, gp, R0, aff, first = (run[k] for k in ("gl", "gp", "R0", "aff",
+                                                "first"))
+    K = blk.slot_capacity(len(first), gl.n_blocks)
+    ids = torch.full((K,), -1, dtype=torch.int32, device="cuda")
+    ids[:len(first)] = torch.as_tensor(first, dtype=torch.int32,
+                                       device="cuda")
+    mask = torch.arange(K, device="cuda") < len(first)
+    aff_x = torch.cat([aff, torch.zeros(1, dtype=torch.bool, device="cuda")])
+    view = tiering.EdgePager(gl, run["budget"]).ensure(first)
+    par = _sweep_parity(bws, blk, gp, R0, aff_x, ids, mask, expand=True,
+                        what=f"paged, {len(first)} of {K} slots", edges=view)
+    Rk, Ak, Ck, mk, ek = par["state"]
+    R, A, C = _sweep_state(R0, aff_x)
+    m, e = bws.blocked_sweep_cuda(
+        blk.sweep_graph(gl, R0.dtype), R, R, A, C, ids, mask, n=gl.n,
+        alpha=0.85, tau=TAU, tau_f=TAU / 1000.0, tile=512, expand=True,
+        jacobi=False)            # as _sweep_parity's LF sweep
+    _check(all(bool(torch.equal(a, b)) for a, b in (
+        (Rk, R), (Ak, A), (Ck, C), (mk, m), (ek, e))),
+           "the paged sweep kernel differs from the unpaged one")
+    bound = _sweep_bound(gl.src.cpu().numpy(), run["ibp"], first,
+                         par["edges"][:len(first)], BLOCK, 8)
+    print(f"blocked_sweep, paged: one sweep of {len(first)} slots "
+          f"{par['ms']:.4f} ms on the card (bound {bound[0]:.5f} ms by "
+          f"{bound[1]}, {bound[2]} bytes), plain version "
+          f"{par['plain_s'] * 1e3:.1f} ms; kernel vs plain max abs err "
+          f"{par['err']:.3e}, bit-equal to the unpaged kernel [{smi}]",
+          flush=True)
+    return {"err": par["err"], "ms": par["ms"], "bound_ms": bound[0]}
 
 
 def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
@@ -1394,6 +1549,7 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
         _check(e <= 1e-9, f"{what}: L_inf vs the oracle {e} > 1e-9")
     _check(bb_c.stats.dnf and not bb_c.converged,
            "BB under a crash did not end dnf")
+    paged_run = _paged_run(bws, blk, hg3, g3, cold.ranks, smi)
     launches = {"blocked_sweep": bws.blocked_sweep_cuda.launches,
                 "block_spmv": bsk.block_spmv_cuda.launches,
                 "block_spmv_active": bsk.block_spmv_active_cuda.launches}
@@ -1420,6 +1576,8 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
         torch.cat([aff, torch.zeros(1, dtype=torch.bool, device="cuda")]),
         ids_full[:K].contiguous(), mask, expand=True,
         what=f"DF frontier, {n_act} of {K} slots")
+    paged = _paged_sweep_parity(bws, blk, paged_run, smi)
+    del paged_run
     df_ids = ids_full[:n_act].cpu().numpy().astype(np.int64)
     df_bound = _sweep_bound(g4.src.cpu().numpy(),
                             g4.in_block_ptr.cpu().numpy().astype(np.int64),
@@ -1442,7 +1600,7 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
         replaces="src/repro/core/blocked.py::sweep (lax.scan, no Pallas "
         "kernel)",
         launches=launches["blocked_sweep"],
-        max_abs_err=max(cold_par["err"], df_par["err"]),
+        max_abs_err=max(cold_par["err"], df_par["err"], paged["err"]),
         ms=cold_par["ms"], plain_ms=cold_par["plain_s"] * 1e3,
         bound_ms=cold_bound[0], bound_by=cold_bound[1], library_ms=None)
     return launches, row
@@ -1707,7 +1865,7 @@ def _tiered_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
     to phase 3 and its oracle; a full-budget one warm-starts from phase
     3's opening ranks; the half-budget one is saved, restored untiered and
     under the full budget (bit for bit) and forked.  Returns the path's
-    launch counts."""
+    launch counts and the host pool's bytes."""
     from repro_torch.api.config import EngineConfig
     from repro_torch.api.session import PageRankSession, SweepCapWarning
     from repro_torch.core import tiering
@@ -1897,6 +2055,119 @@ def _tiered_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
                 "blocked_sweep": 0}
     print(f"launches on the tiered path: {launches}; phase 10 took "
           f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    return launches, pool_bytes
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the tiered push path on the main path's graph
+# ---------------------------------------------------------------------------
+
+def _tiered_push_phase(bsk, hg, batches, nd_batch, budget: int, p3: dict,
+                       p6: dict, smi: str) -> dict:
+    """Phase 11: a push session under ``device_budget_bytes=budget`` (half
+    the host pool) on phase 3's graph and batches, warm-started from phase
+    3's opening ranks (its residual rebuilt from host truth, so no cold
+    solve), with the launch counters zeroed just before and read at the
+    end.  Every update must converge with no ``SweepCapWarning``, the
+    ranks stay within 1e-8 of phase 6's push ranks and of phase 3's
+    oracle, and the residual within 1e-12 of host truth after the last
+    batch.  ``p3``/``p6`` hold phases 3's and 6's numbers.  Returns the
+    path's launch counts."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession, SweepCapWarning
+    from repro_torch.core.push_engine import residual_from_host
+    t_phase = time.perf_counter()
+    n = hg.n
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU,
+                       driver="push", device_budget_bytes=budget,
+                       max_iterations=TIERED_MAX_ITERATIONS)
+
+    # -- the path: launch counters zeroed just before, read just after -----
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SweepCapWarning)
+        t0 = time.perf_counter()
+        sess = PageRankSession.from_graph(hg, config=cfg, r0=p3["r_open"],
+                                          device="cuda")
+        torch.cuda.synchronize()
+        t_open = time.perf_counter() - t0
+        maxr = float(sess._residual.abs().max())
+        sess.warmup()
+        mem = torch.cuda.memory_allocated() - mem0
+        print(f"tiered push open (warm start, residual from host truth): "
+              f"{t_open:.2f} s, max|r| {maxr:.3e}; warmup refill rounds "
+              f"{sess.hot.counters['refill_drives']} [{smi}]", flush=True)
+        df, rounds = [], []
+        for i, (dels, ins) in enumerate(batches):
+            c0 = dict(sess.hot.counters)
+            res = sess.update(dels, ins, variant="df")
+            torch.cuda.synchronize()
+            df.append(res)
+            c1 = sess.hot.counters
+            rounds.append(c1["refill_drives"] - c0["refill_drives"])
+            print(f"tiered push df update {i}: {res.wall_time_s * 1e3:.2f} "
+                  f"ms, sweeps {res.stats.sweeps}, pushed blocks "
+                  f"{res.pushed_blocks}, edges {res.stats.edges_processed}, "
+                  f"host syncs {res.host_syncs}, refill rounds {rounds[-1]},"
+                  f" evictions {c1['evictions'] - c0['evictions']}, admitted"
+                  f" tiles {c1['admitted_tiles'] - c0['admitted_tiles']}, "
+                  f"converged {res.converged}", flush=True)
+        r_df = sess.ranks
+        c0 = dict(sess.hot.counters)
+        nd = sess.update(*nd_batch, variant="nd")
+        torch.cuda.synchronize()
+    print(f"tiered push nd update: {nd.wall_time_s * 1e3:.2f} ms, sweeps "
+          f"{nd.stats.sweeps}, host syncs {nd.host_syncs}, refill rounds "
+          f"{sess.hot.counters['refill_drives'] - c0['refill_drives']}",
+          flush=True)
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches,
+                "blocked_sweep": 0}
+    rep = sess.report()
+    walls = np.array([r.wall_time_s for r in df]) * 1e3
+    print(f"tiered push df p50 {np.percentile(walls, 50):.2f} ms, p95 "
+          f"{np.percentile(walls, 95):.2f} ms beside phase 6's p50 "
+          f"{np.percentile(p6['df_ms'], 50):.2f} ms, p95 "
+          f"{np.percentile(p6['df_ms'], 95):.2f} ms; refill rounds per "
+          f"update {rounds}; host syncs per update "
+          f"{[r.host_syncs for r in df]} [{smi}]", flush=True)
+    print(f"card memory: tiered push session {mem} bytes "
+          f"({mem / 1e9:.3f} GB) beside phase 6's untiered push "
+          f"{p6['mem']} bytes ({p6['mem'] / 1e9:.3f} GB) "
+          f"(torch.cuda.memory_allocated after open + warmup) [{smi}]",
+          flush=True)
+    print(f"tiered push report().device_bytes: {rep.device_bytes}",
+          flush=True)
+    print(f"tiered push report().tiering: {rep.tiering}", flush=True)
+    r_nd = sess.ranks
+    e_df = _linf(r_df, p6["r_df"], n)
+    e_nd = _linf(r_nd, p6["r_nd"], n)
+    e_ref = _linf(r_nd, p3["ref"], n)
+    drift = float(np.abs(sess._residual.cpu().numpy() - residual_from_host(
+        sess.hg, sess._out_deg_host, r_nd, cfg.alpha)).max())
+    print(f"tiered push L_inf: after the df updates {e_df:.3e} to phase 6's;"
+          f" after nd {e_nd:.3e} to phase 6's and {e_ref:.3e} to phase 3's "
+          f"oracle; residual drift to host truth {drift:.3e}; launches on "
+          f"the tiered push path: {launches}; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    _check(all(r.converged for r in df) and nd.converged,
+           "a tiered push update did not converge")
+    _check(rep.tiering["refill_drives"] > 0 and rep.tiering["misses"] > 0,
+           "the tiered push session never deferred a block")
+    _check(rep.device_bytes["tile_pool"] == 0,
+           "the tiered push session holds dense tiles on the card")
+    _check(max(e_df, e_nd, e_ref) <= 1e-8,
+           f"tiered push ranks off phase 6 or phase 3's oracle: {e_df}, "
+           f"{e_nd}, {e_ref}")
+    _check(drift <= 1e-12, f"tiered push residual drift {drift} > 1e-12")
+    _check(launches["block_spmv_active"] > 0,
+           "the tiered push path launched no block_spmv_active")
+    sess.close()
+    del sess
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2055,7 +2326,7 @@ def main() -> None:
     sess.close()
 
     # -- phase 6: the push driver, same graph and traffic -------------------
-    push_launches = _push_phase(
+    push_launches, p6 = _push_phase(
         bsk, ops, hg, EngineConfig(block_size=BLOCK, dtype=torch.float64,
                                    tau=TAU, driver="push"),
         batches, df, nd_batch, ref, smi)
@@ -2075,17 +2346,23 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 10: the tiered pull path, on phase 3's graph and batches -----
-    tier_launches = _tiered_phase(
-        bsk, hg, batches, nd_batch,
-        {"r_open": r_open, "r_df": kept[N_DF_UPDATES], "r_nd": r,
-         "ref": ref, "mem": mem3, "df_ms": walls,
-         "syncs": [x.host_syncs for x in df]}, smi)
+    p3 = {"r_open": r_open, "r_df": kept[N_DF_UPDATES], "r_nd": r,
+          "ref": ref, "mem": mem3, "df_ms": walls,
+          "syncs": [x.host_syncs for x in df]}
+    tier_launches, pool_bytes = _tiered_phase(bsk, hg, batches, nd_batch, p3,
+                                              smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the tiered push path, after phase 10's sessions closed ---
+    tpush_launches = _tiered_push_phase(bsk, hg, batches, nd_batch,
+                                        pool_bytes // 2, p3, p6, smi)
     for row in table:
         row["launches"] = (launches[row["name"]] + push_launches[row["name"]]
                            + var_launches[row["name"]]
                            + blk_launches[row["name"]]
                            + dur_launches[row["name"]]
-                           + tier_launches[row["name"]])
+                           + tier_launches[row["name"]]
+                           + tpush_launches[row["name"]])
     table.append(sweep_row)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -7,8 +7,7 @@ Same fields and the same construction-time validation as the JAX config.
 that belong to later slices of the port raise ``NotImplementedError`` at
 construction, naming the ROADMAP item (queue A) that brings them; a config
 that constructs is one the port runs: ``device_budget_bytes`` tiers a
-pull-driver stream (a push stream with a budget is A 10b).  The
-``driver="push"`` rules, the budget's rules and the ``fault_domain=``
+stream under either driver.  The ``driver="push"`` rules, the budget's rules and the ``fault_domain=``
 checks come before those refusals, so a config the reference refuses for
 good gets the reference's ``ValueError``.
 ``fault_domain=`` takes a
@@ -54,8 +53,6 @@ _LATER = {
                     "(sharded topology and the shard domain)",
     "integrity": "A 11 (integrity and chaos)",
     "walk": "A 13 (walk engine / PPR)",
-    "budget:push": "A 10b (tiered storage: the push refill and the "
-                   "blocked engine's EdgePager)",
 }
 
 
@@ -63,8 +60,8 @@ def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
         "the port runs the single-device session (pallas engine with the "
-        "pull or push driver, tiered under the pull driver; blocked and "
-        "dense engines; the thread and process fault domains)")
+        "pull or push driver, tiered or not; blocked and dense engines; the "
+        "thread and process fault domains)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,10 +245,6 @@ class EngineConfig:
             if v < lo:
                 raise ValueError(f"{name}={v} must be >= {lo}")
             raise _later(f"{name}=", "walk")
-        # -- the push driver's refill loop is a later slice ------------------
-        if self.device_budget_bytes is not None and self.driver == "push":
-            raise _later("device_budget_bytes= with driver='push'",
-                         "budget:push")
 
     # -- resolution helpers --------------------------------------------------
     @property

@@ -1,11 +1,12 @@
 """`PageRankSession` — one stateful handle for streams and snapshots.
 
 Ports the single-device stream and snapshot modes of
-``src/repro/api/session.py``, tiered storage under the pull driver
+``src/repro/api/session.py``, tiered storage under both drivers
 included: ``_seed_affected``, ``_apply_operand_delta``, ``_admit``,
 ``_mask_from_indices``, ``_drive_refill``, ``from_graph``,
 ``from_snapshot``, ``_init_stream``, ``_init_snapshot``, ``_converge``,
-``_drive``, ``_drive_push``, ``_residual_recompute``,
+``_drive``, ``_drive_push``, ``_drive_push_refill``,
+``_residual_recompute``,
 ``_seed_push``, ``_update_stream``, ``_update_snapshot``, ``update`` (all
 four variants), ``recompute`` (``static``/``nd``, and the ``df``/``dt``
 replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
@@ -65,18 +66,21 @@ edges, the stored ranks as ``r0``: no solve) and replays the WAL through
 arrays do, because the port patches it in place: a fork copies every device
 tensor a later update writes.
 
-Tiered storage (``EngineConfig(device_budget_bytes=N)``, pull driver): the
-whole tile pool stays on the host
+Tiered storage (``EngineConfig(device_budget_bytes=N)``, either driver):
+the whole tile pool stays on the host
 (:class:`~repro_torch.core.tiering.HostTilePool`) and the card holds a
 budget-bounded slab of packed entries
 (:class:`~repro_torch.core.tiering.HotSetManager`).  An update patches
-host truth, drops the touched blocks from the slab, seeds DF on the host
-(``df_seed_indices``), admits the touched and seed blocks and their
-candidates, and drives through the refill loop, which re-drives the
-blocks the driver deferred until the reference's quiet-window criterion
-drains them.  ``save`` reads host truth; a restore starts from an empty
-slab, so a WAL replay re-drives along another residency path than the
-live session took, as the reference's does.
+host truth, drops the touched blocks from the slab, seeds on the host (the
+pull's DF seed ``df_seed_indices``, or the push's residual seed), admits
+the touched and seed blocks and their candidates, and drives through a
+refill loop.  The pull's re-drives the blocks the driver deferred until
+the reference's quiet-window criterion drains them; the push's admits the
+blocks its pushes could not reach, rebuilds their residual exactly and
+re-drives until none is deferred, and a tiered push session rebuilds a
+whole residual from host truth.  ``save`` reads host truth; a restore
+starts from an empty slab, so a WAL replay re-drives along another
+residency path than the live session took, as the reference's does.
 """
 from __future__ import annotations
 
@@ -166,6 +170,18 @@ def _seed_affected(mat_prev: ops.BlockSparse, mat_new: ops.BlockSparse,
     seed = _seed_sources(bmat, batch, valid, block_size=block_size)
     hit = _seed_pass(mat_prev, seed) | _seed_pass(mat_new, seed)
     return _seed_mask(hit, seed, valid, block_size=block_size)
+
+
+def _add_drive(agg: SweepStats, st: SweepStats) -> SweepStats:
+    """A refill round's drive added to the drives before it: the counters
+    sum, ``converged`` is the last drive's, ``dnf`` sticks."""
+    return SweepStats(
+        sweeps=agg.sweeps + st.sweeps,
+        iterations=agg.iterations + st.iterations,
+        blocks_processed=agg.blocks_processed + st.blocks_processed,
+        edges_processed=agg.edges_processed + st.edges_processed,
+        sim_time_ms=agg.sim_time_ms + st.sim_time_ms,
+        converged=bool(st.converged), dnf=bool(agg.dnf or st.dnf))
 
 
 def _apply_operand_delta(out_deg, rb_in, rb_out, bmat, rows, cols, vals, *,
@@ -414,9 +430,11 @@ class PageRankSession:
         if r0 is None and self._push:
             # cold push solve: p = 0, r = b — the invariant holds trivially
             # and the drive pushes the whole teleport mass to the fixed point
+            # (a tiered session through the refill loop, every block wanted)
             self._residual = self._on_valid((1.0 - cfg.alpha) / self.n)
-            r0, _, _, _ = self._drive_push(
-                torch.zeros(self.n_pad, dtype=dt, device=dev))
+            r0, _, _, _ = self._drive_push_refill(
+                torch.zeros(self.n_pad, dtype=dt, device=dev),
+                want_rb=np.arange(self.n_rb) if self._tiered else None)
         elif r0 is None and self._tiered:
             # cold solve through the refill loop: admit what fits, converge
             # the resident blocks, defer the rest (block-Jacobi over
@@ -562,13 +580,7 @@ class PageRankSession:
             R_prev = R
             R, st, s = self._drive(R, aff, expand=True)
             syncs += s
-            agg = SweepStats(
-                sweeps=agg.sweeps + st.sweeps,
-                iterations=agg.iterations + st.iterations,
-                blocks_processed=agg.blocks_processed + st.blocks_processed,
-                edges_processed=agg.edges_processed + st.edges_processed,
-                sim_time_ms=agg.sim_time_ms + st.sim_time_ms,
-                converged=bool(st.converged), dnf=bool(agg.dnf or st.dnf))
+            agg = _add_drive(agg, st)
             # drain check: a quiet round extends the window with the blocks
             # it re-drove; a loud round (or an unconverged drive) resets it
             driven = pending[self.hot.resident[pending]]
@@ -606,69 +618,131 @@ class PageRankSession:
     def _drive_push(self, P0) -> Tuple[torch.Tensor, SweepStats, dict, int]:
         """One fused push drive over the device-resident operand mirrors:
         ranks + carried residual in, ranks + shrunk residual out; returns
-        (ranks, stats, push extras, host syncs made)."""
+        (ranks, stats, push extras, host syncs made).  On a tiered session
+        the deferral indicator rides the drive's last poll."""
+        tiered = self._tiered
         P, Rr, sv, syncs = pshe._push_driver(
             self.inc.mat, P0, self._residual, self.valid, self._out_deg,
             self._bmat, self._alpha, self._tau, n=self.n,
             block_size=self.block_size,
-            max_iterations=self.config.max_iterations)
+            max_iterations=self.config.max_iterations,
+            rb_res=self.hot.rb_res if tiered else None, tiered=tiered)
+        if tiered:
+            self._deferred_rb = sv[pshe.STATS_LEN:] != 0
+            sv = sv[:pshe.STATS_LEN]
         self._residual = Rr
         stats, extras = pshe.push_stats_from_vec(sv)
         return P, stats, extras, syncs
 
+    def _drive_push_refill(self, P0, *, want_rb=None
+                           ) -> Tuple[torch.Tensor, SweepStats, dict, int]:
+        """Admission + push drive + stale-refresh refill loop (the push twin
+        of :meth:`_drive_refill`); an untiered session makes one plain
+        :meth:`_drive_push`.  A drive delivers pushes to resident
+        destination blocks only; the blocks it pushed to while off the
+        device are stale and sit in the deferred indicator.  Each round
+        admits them, rebuilds the admitted ones' residual exactly
+        (:func:`~repro_torch.core.push_engine.residual_refresh_blocks`) and
+        re-drives, until the indicator drains; blocks the slab could not
+        take stay deferred.  No quiet-window drain is needed: ``p`` is
+        exact everywhere at all times, so a drained indicator IS
+        convergence.  ``max_iterations`` rounds is the safety cap
+        (:class:`SweepCapWarning`)."""
+        if not self._tiered:
+            return self._drive_push(P0)
+        if want_rb is not None:
+            self._admit(want_rb)
+        P, agg, extras, syncs = self._drive_push(P0)
+        pushed = extras["pushed_blocks"]
+        rounds = 0
+        while self._deferred_rb.any():
+            if rounds >= int(self.config.max_iterations):
+                warnings.warn(
+                    f"tiered push refill loop did not drain in {rounds} "
+                    "rounds — serving the best iterate (raise "
+                    "device_budget_bytes)", SweepCapWarning, stacklevel=3)
+                agg = dataclasses.replace(agg, converged=False)
+                break
+            rounds += 1
+            pending = np.nonzero(self._deferred_rb)[0]
+            self._admit(pending)
+            got = pending[self.hot.resident[pending]]
+            if len(got):
+                ids = np.full(self.n_rb, -1, np.int32)
+                ids[:len(got)] = got
+                self._residual = pshe.residual_refresh_blocks(
+                    self.inc.mat, P, self._residual, self.valid,
+                    self._out_deg, self._alpha,
+                    ops._upload(ids, self.device),
+                    ops._upload(np.array([len(got)], np.int64), self.device),
+                    n=self.n, block_size=self.block_size)
+            leftover = np.zeros(self.n_rb, bool)
+            leftover[pending] = ~self.hot.resident[pending]
+            P, st, extras, s = self._drive_push(P)
+            syncs += s
+            pushed += extras["pushed_blocks"]
+            agg = _add_drive(agg, st)
+            self._deferred_rb |= leftover
+        self.hot.counters["refill_drives"] += rounds
+        return P, agg, {**extras, "pushed_blocks": pushed}, syncs
+
     def _residual_recompute(self, P) -> torch.Tensor:
         """Exact O(m) residual rebuild ``r = b + M·p − p`` for the current
-        graph (nd / given-ranks path): one launch of kernel #1."""
+        graph (nd / given-ranks path): one launch of kernel #1, or on a
+        tiered session, whose device matrix is only the slab's view, a walk
+        of host truth (:func:`~repro_torch.core.push_engine.
+        residual_from_host`, one read of ``p``)."""
+        if self._tiered:
+            return ops._upload(pshe.residual_from_host(
+                self.hg, self._out_deg_host, P.cpu().numpy(),
+                float(self.config.alpha)), self.device)
         return pshe.residual_full(self.inc.mat, P, self.valid, self._out_deg,
                                   self._alpha, n=self.n)
 
-    def _seed_push(self, variant: str, sources: np.ndarray,
-                   deg_old_src: np.ndarray) -> Tuple[torch.Tensor, int]:
+    def _seed_push(self, variant: str, sources=None, deg_old_src=None
+                   ) -> Tuple[torch.Tensor, int, Optional[np.ndarray]]:
         """Set the session residual for one applied batch and return
-        ``(P0, host syncs made)``.  ``df`` is the O(batch·deg) path: the
-        batch changes the pull matrix only in its effective source columns
-        (``sources``, whose pre-batch degrees are ``deg_old_src``), so
-        ``Δr = (M' − M)·p`` is enumerated on the host and applied by one
-        deterministic device scatter; reading ``p`` at the sources is the
-        one host sync.  ``nd`` keeps ``p`` and rebuilds the exact residual
-        (O(m)); ``static`` restarts cold (p = 0, r = b)."""
+        ``(P0, host syncs made, seed indices)``.  ``df`` is the
+        O(batch·deg) path: the batch changes the pull matrix only in its
+        effective source columns (``sources``, whose pre-batch degrees are
+        ``deg_old_src``), so ``Δr = (M' − M)·p`` is enumerated on the host
+        and applied by one deterministic device scatter; reading ``p`` at
+        the sources is the one host sync, and the scatter's indices are the
+        seed a tiered session admits with.  ``nd`` keeps ``p`` and rebuilds
+        the exact residual (O(m)); ``static`` restarts cold (p = 0,
+        r = b); neither has a seed."""
         if variant == "df":
-            syncs = 0
-            if len(sources):
-                p_src = self.R[ops._upload(sources, self.device)]
-                p_src = p_src.cpu().numpy()
-                syncs = 1
-                sidx, svals = pshe.residual_seed_host(
-                    self._hg_prev, self.hg, sources, p_src, deg_old_src,
-                    self._out_deg_host[sources], float(self.config.alpha))
-                self._residual = pshe.scatter_residual(self._residual, sidx,
-                                                       svals)
-            return self.R, syncs
+            if not len(sources):
+                return self.R, 0, np.zeros(0, np.int64)
+            p_src = self.R[ops._upload(sources, self.device)].cpu().numpy()
+            sidx, svals = pshe.residual_seed_host(
+                self._hg_prev, self.hg, sources, p_src, deg_old_src,
+                self._out_deg_host[sources], float(self.config.alpha))
+            self._residual = pshe.scatter_residual(self._residual, sidx,
+                                                   svals)
+            return self.R, 1, sidx
         if variant == "nd":
             self._residual = self._residual_recompute(self.R)
-            return self.R, 0
+            return self.R, int(self._tiered), None
         self._residual = self._on_valid((1.0 - self.config.alpha) / self.n)
         return torch.zeros(self.n_pad, dtype=self._dtype,
-                           device=self.device), 0
+                           device=self.device), 0, None
 
-    def _solve(self, variant: str, affected=None, sources=None,
-               deg_old_src=None, want_rb=None
+    def _solve(self, variant: str, affected=None, want_rb=None, P0=None
                ) -> Tuple[torch.Tensor, SweepStats, Optional[dict], int]:
         """One solve of the current graph: the start state and active set
         of ``variant`` on the session's driver, then its drive.  Returns
-        (ranks, stats, push extras or None, host syncs made).  ``df`` takes
-        the seeded ``affected`` mask (pull) or the batch's effective
-        ``sources`` and their pre-batch degrees (push); ``dt`` takes the
-        reachability mask ``affected`` and starts warm without expansion;
-        ``nd`` starts warm and ``static`` cold, with every vertex
-        affected.  A tiered session admits ``want_rb`` first and drives
-        through the refill loop, always expanding: the loop is
-        block-Jacobi over residency partitions, and only expansion
+        (ranks, stats, push extras or None, host syncs made).  A push
+        session starts from ``P0``, which :meth:`_seed_push` made.  On the
+        pull driver ``df`` takes the seeded ``affected`` mask; ``dt`` takes
+        the reachability mask ``affected`` and starts warm without
+        expansion; ``nd`` starts warm and ``static`` cold, with every
+        vertex affected.  A tiered session admits ``want_rb`` first and
+        drives through its refill loop; the pull's always expands: the
+        loop is block-Jacobi over residency partitions, and only expansion
         re-marks a resident block whose non-resident inputs moved later."""
         if self._push:
-            P0, seed_syncs = self._seed_push(variant, sources, deg_old_src)
-            R, stats, extras, syncs = self._drive_push(P0)
-            return R, stats, extras, syncs + seed_syncs
+            return self._drive_push_refill(P0, want_rb=want_rb)
         if self._tiered:
             R0 = self.R
             if variant in ("nd", "static"):
@@ -716,7 +790,7 @@ class PageRankSession:
         g_prev_snap = self._snapshot(self.hg) if variant == "dt" else None
         dels_eff, ins_eff = effective_batch(self.hg, deletions, insertions)
         rows, cols, vals = signed_edge_delta(dels_eff, ins_eff)
-        affected = sources = deg_old_src = None
+        affected = sources = deg_old_src = P0 = None
         if self._push:
             # the push seed divides by the PRE-batch degrees of the
             # effective sources: read them before the mirror patch
@@ -760,25 +834,30 @@ class PageRankSession:
         raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
                + np.asarray(insertions).reshape(-1, 2).shape[0])
 
-        dt_syncs = 0
+        seed_syncs = 0
         seed_idx = None
-        if variant == "df" and not self._push and self._tiered:
+        if self._push:
+            # the residual seed replaces the DF marking; its indices feed
+            # a tiered session's want set, as the pull's DF seed does
+            P0, seed_syncs, seed_idx = self._seed_push(variant, sources,
+                                                       deg_old_src)
+        elif variant == "df" and self._tiered:
             # host-side DF seed through the sorted host key sets: no device
             # pull matrix, only the index list crosses to the device
-            raw = [np.asarray(e, np.int64).reshape(-1, 2)[:, 0]
-                   for e in (deletions, insertions)]
+            srcs = [np.asarray(e, np.int64).reshape(-1, 2)[:, 0]
+                    for e in (deletions, insertions)]
             seed_idx = dist.df_seed_indices(self._hg_prev, self.hg,
-                                            np.concatenate(raw))
+                                            np.concatenate(srcs))
             affected = self._mask_from_indices(seed_idx)
-        elif variant == "df" and not self._push:
+        elif variant == "df":
             hit = h_prev | _seed_pass(self.inc.mat, seed)       # ∪ G^t
             affected = _seed_mask(hit, seed, self.valid, block_size=B)
         elif variant == "dt":
             g_new_snap = self._snapshot(self.hg)
-            affected, hops, dt_syncs = fr._dt_reach(
+            affected, hops, seed_syncs = fr._dt_reach(
                 g_prev_snap, g_new_snap,
                 fr.batch_to_device(g_new_snap, deletions, insertions))
-            self._dt_bfs = (hops, dt_syncs)
+            self._dt_bfs = (hops, seed_syncs)
         want_rb = None
         if self._tiered:
             # frontier-biased admission before the drive: the touched
@@ -790,13 +869,13 @@ class PageRankSession:
                 want += [srb,
                          np.nonzero(self.inc.aux.bmat[:, srb].any(axis=1))[0]]
             want_rb = np.concatenate(want)
-        R, stats, extras, syncs = self._solve(variant, affected, sources,
-                                              deg_old_src, want_rb=want_rb)
+        R, stats, extras, syncs = self._solve(variant, affected,
+                                              want_rb=want_rb, P0=P0)
         self.R = R
         return StreamBatchResult(
             ranks=R, stats=stats, wall_time_s=time.perf_counter() - t0,
             batch_edges=raw, driver_retraces=nvcc.total_builds() - builds0,
-            host_syncs=syncs + dt_syncs,
+            host_syncs=syncs + seed_syncs,
             residual_mass=None if extras is None else extras["residual_l1"],
             pushed_blocks=None if extras is None else extras["pushed_blocks"])
 
@@ -935,9 +1014,10 @@ class PageRankSession:
         if variant in ("static", "nd"):
             if self._stream:
                 t0 = time.perf_counter()
+                P0 = self._seed_push(variant)[0] if self._push else None
                 R, stats, _, _ = self._solve(
                     variant, want_rb=(np.arange(self.n_rb) if self._tiered
-                                      else None))
+                                      else None), P0=P0)
                 self.R = R
                 return PagerankResult(ranks=R, stats=stats,
                                       wall_time_s=time.perf_counter() - t0)

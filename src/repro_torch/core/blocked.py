@@ -25,7 +25,10 @@ builds nothing new.
 
 This engine drives its loop from the host and reads three small values per
 sweep (active count, per-slot edges, convergence test), as the reference
-does.  It is the in-sweep Gauss–Seidel reference and fault-model oracle;
+does.  With ``run_blocked(pager=)`` (:class:`~repro_torch.core.tiering.
+EdgePager`) the snapshot's edges stay on the host and each sweep reads its
+active blocks' slices from a bounded slab on the device; the active ids
+ride the count's read.  It is the in-sweep Gauss–Seidel reference and fault-model oracle;
 the card's main path is the fused driver of
 :mod:`repro_torch.core.pallas_engine`.
 """
@@ -54,33 +57,45 @@ class SweepStats:
     dnf: bool = False             # BB stalled at barrier due to a crash
 
 
-def sweep_graph(g: GraphSnapshot, dtype) -> bws.SweepGraph:
-    """The snapshot arrays a sweep reads, with the reciprocal out-degrees
-    in ``dtype`` (0 on the padding and at the phantom entry ``n_pad``)."""
+def sweep_graph(g: GraphSnapshot, dtype, edges=None) -> bws.SweepGraph:
+    """The arrays a sweep reads, with the reciprocal out-degrees in
+    ``dtype`` (0 on the padding and at the phantom entry ``n_pad``).  The
+    block slices are the snapshot's CSR, or with ``edges`` (an
+    :class:`~repro_torch.core.tiering.EdgePager` view ``(src, dst, osrc,
+    odst, in_lo, in_len, out_lo, out_len)``) the pager's slab."""
     deg = g.out_deg.clamp(min=1).to(dtype)
     inv = torch.where(g.vertex_valid, 1.0 / deg, torch.zeros_like(deg))
+    if edges is None:
+        ibp, obp = g.in_block_ptr, g.out_block_ptr
+        edges = (g.src, g.dst, g.osrc, g.odst, ibp[:-1], ibp[1:] - ibp[:-1],
+                 obp[:-1], obp[1:] - obp[:-1])
+    src, dst, osrc, odst, in_lo, in_len, out_lo, out_len = edges
     return bws.SweepGraph(
         block=g.block_size, n_pad=g.n_pad, in_block_ptr=g.in_block_ptr,
-        out_block_ptr=g.out_block_ptr, vptr=g.in_ptr, src=g.src, dst=g.dst,
-        osrc=g.osrc, odst=g.odst, inv_deg=torch.cat([inv, inv.new_zeros(1)]),
-        valid=g.vertex_valid)
+        in_lo=in_lo, in_len=in_len, out_lo=out_lo, out_len=out_len,
+        vptr=g.in_ptr, src=src, dst=dst, osrc=osrc, odst=odst,
+        inv_deg=torch.cat([inv, inv.new_zeros(1)]), valid=g.vertex_valid)
 
 
 def sweep(g: GraphSnapshot, R, affected, RC, slot_ids, slot_mask, R_read,
-          alpha, tau, tau_f, *, tile: int, expand: bool, jacobi: bool):
+          alpha, tau, tau_f, edges=None, *, tile: int, expand: bool,
+          jacobi: bool):
     """One compacted sweep over up to K = len(slot_ids) active blocks.
 
     ``R`` [n_pad], ``affected`` and ``RC`` [n_pad + 1] (entry ``n_pad`` is the
     expansion's trash slot) are updated in place and returned; ``R_read`` is
     ``R`` in LF mode and a copy of ``R`` taken before the sweep in BB mode.
     Returns ``(R, affected, RC, maxdr, edges_per_slot)`` — ``maxdr`` a 0-d
-    tensor, ``edges_per_slot`` [K] int32 (0 for masked or −1 slots).  The
-    tensors' device picks the route: the CUDA kernel or its plain version."""
-    maxdr, edges = bws.blocked_sweep(
-        sweep_graph(g, R.dtype), R, R_read, affected, RC, slot_ids,
+    tensor, ``edges_per_slot`` [K] int32 (0 for masked or −1 slots).
+    ``edges`` (optional) is an :class:`~repro_torch.core.tiering.EdgePager`
+    view: the sweep then reads the block slices from the pager's bounded
+    slab.  The tensors' device picks the route: the CUDA kernel or its
+    plain version."""
+    maxdr, ecount = bws.blocked_sweep(
+        sweep_graph(g, R.dtype, edges), R, R_read, affected, RC, slot_ids,
         slot_mask, n=g.n, alpha=alpha, tau=tau, tau_f=tau_f, tile=tile,
         expand=expand, jacobi=jacobi)
-    return R, affected, RC, maxdr[0], edges
+    return R, affected, RC, maxdr[0], ecount
 
 
 SLOT_BUCKET_BASE = 16
@@ -135,12 +150,13 @@ def run_blocked(g: GraphSnapshot, R0: torch.Tensor, affected0: torch.Tensor,
       "rc"       — only blocks containing a not-yet-converged vertex (the
                    paper's per-chunk converged flag, §4.3).
 
-    ``pager`` (the reference's tiered ``EdgePager``) is not ported yet."""
-    if pager is not None:
-        raise NotImplementedError(
-            "run_blocked(pager=) is not ported yet: ROADMAP item A 10b "
-            "(tiered storage: the push refill and the EdgePager) brings "
-            "it")
+    ``pager`` (optional, a :class:`~repro_torch.core.tiering.EdgePager`
+    over ``g``; pass ``tiering.paged_snapshot(g)`` as ``g``) keeps the
+    snapshot's edges on the host and stages each sweep's active blocks into
+    a bounded device slab.  The active ids come to the host in the same
+    read as their count, so a paged sweep makes the host reads an unpaged
+    one does; the result is bit-identical to the unpaged run (the same
+    slices at other addresses)."""
     if mode not in ("lf", "bb"):
         raise ValueError(mode)
     if active_policy not in ("affected", "rc"):
@@ -167,7 +183,14 @@ def run_blocked(g: GraphSnapshot, R0: torch.Tensor, affected0: torch.Tensor,
         ids_full, n_act = active_blocks(act_flags[:n_pad],
                                         n_blocks=g.n_blocks,
                                         block_size=g.block_size)
-        n_act = int(n_act)
+        if pager is None:
+            n_act = int(n_act)
+        else:
+            # the pager stages on the host: the ids ride the count's read
+            got = torch.cat([n_act.to(ids_full.dtype).reshape(1),
+                             ids_full]).cpu().numpy()
+            n_act = int(got[0])
+            ids_h = got[1:1 + n_act]
         if n_act == 0:
             stats.converged = True
             break
@@ -175,6 +198,8 @@ def run_blocked(g: GraphSnapshot, R0: torch.Tensor, affected0: torch.Tensor,
         # ladder bucket ≥ |active|
         K = slot_capacity(n_act, g.n_blocks)
         ids = ids_full[:K]
+        # paged edges: stage this sweep's active blocks into the slab
+        edges = pager.ensure(ids_h) if pager is not None else None
 
         # dynamic scheduling (paper §3.3.2): compacted slots are drawn from a
         # global pool by the threads *participating* this sweep — a delayed or
@@ -202,7 +227,7 @@ def run_blocked(g: GraphSnapshot, R0: torch.Tensor, affected0: torch.Tensor,
         R_read = R.clone() if jacobi else R
         R, affected, RC, maxdr, edge_ct = sweep(
             g, R, affected, RC, ids, slot_mask, R_read, alpha, tau, tau_f,
-            tile=tile, expand=expand, jacobi=jacobi)
+            edges, tile=tile, expand=expand, jacobi=jacobi)
 
         edges_np = edge_ct.cpu().numpy()
         thread_edges = np.bincount(assign[mask_np],

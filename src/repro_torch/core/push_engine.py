@@ -1,8 +1,8 @@
 """Fused residual forward-push driver — work ∝ residual mass, not sweeps.
 
-Ports the untiered part of ``src/repro/core/push_engine.py``
-(``_push_driver``, ``push_stats_from_vec``, ``residual_seed_host``,
-``scatter_residual``, ``residual_full``, ``residual_from_host``).  The
+Ports ``src/repro/core/push_engine.py`` (``_push_driver`` with its tiered
+mode, ``push_stats_from_vec``, ``residual_seed_host``, ``scatter_residual``,
+``residual_full``, ``residual_refresh_blocks``, ``residual_from_host``).  The
 session keeps a residual ``r`` next to the rank estimate ``p`` under the
 exact invariant
 
@@ -24,13 +24,20 @@ body is gated on ``~converged & ~stalled & it < max_iterations`` as the
 reference gates its body on ``cond``, so the sweeps that run past
 convergence change nothing and the counters equal the reference's.
 
-Left out (tiered storage, ROADMAP A 10): ``residual_refresh_blocks`` and the
-driver's ``rb_res``/``deferred`` operands.  ``push_cache_size`` has no
-counterpart: the session counts kernel builds instead.
+Tiered storage composes without a mid-sweep sync: on the hot slab's view
+a push delivers to resident destination row-blocks only, and a pushed-to
+non-resident block goes stale and is marked in a deferred indicator that
+rides the chunk's poll.  ``p`` stays exact everywhere (advancing it needs no
+tiles), so the session's refill loop admits the stale blocks and rebuilds
+their residual exactly from the invariant (:func:`residual_refresh_blocks`,
+one launch of kernel #2 over the admitted blocks' own tile rows).
+
+``push_cache_size`` has no counterpart: the session counts kernel builds
+instead.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,14 +59,22 @@ def _poll(sv: torch.Tensor) -> np.ndarray:
 
 
 def _push_driver(mat: ops.BlockSparse, P0, R0, valid, out_deg, bmat, alpha,
-                 tau, *, n: int, block_size: int, max_iterations: int
+                 tau, *, n: int, block_size: int, max_iterations: int,
+                 rb_res: Optional[torch.Tensor] = None, tiered: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, int]:
     """The fused push loop.  Returns (p [n_pad], r [n_pad], host stats
     vector [STATS_LEN], host syncs made).
 
     ``P0`` is the rank estimate and ``R0`` the residual satisfying
     ``r = b + M·p − p`` (the caller keeps it by seeding or a full rebuild);
-    ``alpha``/``tau`` are 0-d tensors (runtime operands)."""
+    ``alpha``/``tau`` are 0-d tensors (runtime operands).
+
+    ``tiered=True``: ``mat`` is the hot slab's view and ``rb_res`` [n_rb]
+    marks the resident row-blocks.  Pushes deliver to resident candidate
+    destination blocks only; a candidate off the device goes stale and is
+    marked in ``deferred``, which rides the poll — the stats vector then
+    holds ``STATS_LEN + n_rb`` entries, the last ``n_rb`` the indicator
+    (0/1) — so it costs no host sync of its own."""
     dev = P0.device
     dtype = P0.dtype
     B = block_size
@@ -86,10 +101,11 @@ def _push_driver(mat: ops.BlockSparse, P0, R0, valid, out_deg, bmat, alpha,
     converged, stalled = f_false.clone(), f_false.clone()
     sweeps, pushed_b, cand_b, edges = (
         torch.zeros((), dtype=cdt, device=dev) for _ in range(4))
+    deferred = torch.zeros(n_rb, dtype=torch.bool, device=dev)
 
     def sweep():
         nonlocal P, Rr, it, converged, stalled, sweeps, pushed_b, cand_b
-        nonlocal edges
+        nonlocal edges, deferred
         go = ~converged & ~stalled & (it < max_iterations)
         aRr = Rr.abs()
         rb_maxr = aRr.reshape(n_rb, B).amax(dim=1)
@@ -119,6 +135,12 @@ def _push_driver(mat: ops.BlockSparse, P0, R0, valid, out_deg, bmat, alpha,
         #    #2 over the candidate destination row-blocks ----------------
         sel_v = vexp(sel) & valid & (aRr > tau_c)
         cand = (bmat & sel[None, :]).any(dim=1)
+        if tiered:
+            # deliver to resident destination blocks only; a pushed-to
+            # block off the device goes stale (sel is zero on a gated
+            # sweep, so cand carries the gate)
+            deferred = deferred | (cand & ~rb_res)
+            cand = cand & rb_res
         n_cand = torch.where(do, cand.sum(), 0)
         cids = torch.where(do, fr.compact_block_ids(cand, n_rb), -1)
         moved = torch.where(sel_v, Rr, zero)
@@ -144,13 +166,16 @@ def _push_driver(mat: ops.BlockSparse, P0, R0, valid, out_deg, bmat, alpha,
             sweep()
         done = converged | stalled | (it >= max_iterations)
         aR = Rr.abs()
-        sv = _poll(torch.stack([
+        sv = torch.stack([
             sweeps, pushed_b, cand_b, edges, aR.sum().to(cdt),
             aR.max().to(cdt), converged.to(cdt), stalled.to(cdt),
-            done.to(cdt)]))
+            done.to(cdt)])
+        if tiered:
+            sv = torch.cat([sv, deferred.to(cdt)])
+        sv = _poll(sv)
         syncs += 1
         if sv[STATS_LEN] > 0:
-            return P, Rr, sv[:STATS_LEN], syncs
+            return P, Rr, np.delete(sv, STATS_LEN), syncs
 
 
 def push_stats_from_vec(sv: np.ndarray) -> Tuple[SweepStats, dict]:
@@ -262,10 +287,36 @@ def residual_full(mat: ops.BlockSparse, P, valid, out_deg, alpha, *,
     return torch.where(valid, base + alpha_c * pulled - Pm, zero)
 
 
+def residual_refresh_blocks(mat: ops.BlockSparse, P, Rr, valid, out_deg,
+                            alpha, ids, n_ids, *, n: int, block_size: int
+                            ) -> torch.Tensor:
+    """Exact residual rebuild restricted to the listed row-blocks:
+    ``r[rb] = b + α·(A·D⁻¹·p)[rb] − p[rb]`` for each id, ``Rr`` elsewhere
+    (the tiered refill path: a stale, just-admitted block needs only its
+    own tile row, and ``p`` is always exact).  ``ids`` is a [n_rb]
+    −1-padded compact list and ``n_ids`` its int64 count on the device:
+    one ``sum`` launch of kernel #2 on the card, never a host read."""
+    dtype = P.dtype
+    n_rb = valid.shape[0] // block_size
+    zero = torch.zeros((), dtype=dtype, device=P.device)
+    deg = out_deg.clamp(min=1).to(dtype)
+    inv_deg = torch.where(valid, 1.0 / deg, zero)
+    alpha_c = alpha.to(dtype)
+    base = (1.0 - alpha_c) / n
+    Pm = torch.where(valid, P, zero)
+    pulled = ops.block_spmv_active_bucketed(mat, Pm * inv_deg, ids, n_ids,
+                                            semiring="sum")
+    sel = torch.zeros(n_rb + 1, dtype=torch.bool, device=P.device)
+    sel[torch.where(ids >= 0, ids.long(), n_rb)] = True
+    rows = sel[:n_rb, None].expand(n_rb, block_size).reshape(-1) & valid
+    return torch.where(rows, base + alpha_c * pulled - Pm, Rr)
+
+
 def residual_from_host(hg: HostGraph, out_deg: np.ndarray, p: np.ndarray,
                        alpha: float) -> np.ndarray:
-    """Full residual recompute from host truth, self-loops added explicitly
-    (the invariant oracle of the tests and of ``chip_smoke.py``)."""
+    """Full residual recompute from host truth, self-loops added explicitly:
+    a tiered session's rebuild (its device matrix is only the slab's view)
+    and the invariant oracle of the tests and of ``chip_smoke.py``."""
     n = hg.n
     keys = hg._keys
     src = (keys // n).astype(np.int64)

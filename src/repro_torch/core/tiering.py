@@ -1,7 +1,8 @@
 """Tiered graph storage — the host tile pool and a budget-bounded device
-hot slab (ports ``slab_tiles_for_budget``, ``budget_hint``,
-``HostTilePool``, ``HotSetManager`` and ``host_block_adjacency`` from
-``src/repro/core/tiering.py``).
+hot slab, and the blocked engine's paged edges (ports
+``src/repro/core/tiering.py``: ``slab_tiles_for_budget``, ``budget_hint``,
+``HostTilePool``, ``HotSetManager``, ``host_block_adjacency``,
+``EdgeView``, ``EdgePager`` and ``paged_snapshot``).
 
 * :class:`HostTilePool` — the **host tier**: the full tile pool and slot
   tables as numpy arrays (``ops.build_block_sparse(to_device=False)``),
@@ -30,6 +31,12 @@ compacted on the device (and the entry pool grows if they still do not
 fit), counted in ``index_repacks`` / ``repacked_entries`` apart from the
 reference's counters.
 
+* :class:`EdgePager` — the blocked engine's analogue over per-block edge
+  extents: the snapshot's CSR stays on the host and each sweep's active
+  blocks are staged into a bounded device slab, which
+  :func:`repro_torch.core.blocked.run_blocked` reads through per-block
+  ``lo``/``len`` tables (:func:`paged_snapshot` drops the device CSR).
+
 The budget and the counters keep the reference's units: a slab slot is
 charged as one B×B dense tile (:func:`slab_tiles_for_budget`), and so are
 ``transfer_bytes`` and ``slab_bytes``, so admissions, evictions and refill
@@ -38,8 +45,9 @@ what the slab really allocates.
 """
 from __future__ import annotations
 
+import dataclasses
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -537,3 +545,160 @@ def host_block_adjacency(tile_cols: np.ndarray, n_cb: int) -> np.ndarray:
     rb, slot = np.nonzero(tile_cols >= 0)
     out[rb, tile_cols[rb, slot]] = True
     return out
+
+
+# ---------------------------------------------------------------------------
+# EdgePager — the blocked engine's analogue over per-block edge extents
+# ---------------------------------------------------------------------------
+
+#: the 8-tuple ``ensure`` returns, in sweep-operand order:
+#: (src, dst, osrc, odst, in_lo, in_len, out_lo, out_len)
+EdgeView = Tuple
+
+#: the reference's slab arrays carry a ``dynamic_slice`` tail guard of this
+#: many entries; the port's sweep reads no entry past a slice's end and
+#: allocates none, but ``transfer_bytes`` counts it, so the counters of the
+#: two packages stay equal
+REFERENCE_SLAB_GUARD = 1024
+
+
+@dataclasses.dataclass
+class _HostEdges:
+    """Host copies of a snapshot's per-block edge extents."""
+    src: np.ndarray
+    dst: np.ndarray
+    in_ptr: np.ndarray
+    osrc: np.ndarray
+    odst: np.ndarray
+    out_ptr: np.ndarray
+
+
+class EdgePager:
+    """Host-paged per-block edge extents for ``run_blocked(pager=)``.
+
+    A sweep reads each active block's in-edge slice (the pull) and
+    out-edge slice (the expansion).  The pager keeps both on the host and
+    stages the active set's slices into four fixed device slabs before each
+    sweep; per-block ``lo``/``len`` tables (index-sized) redirect the sweep
+    into them.  A block's in- and out-slice share one offset of a bump
+    allocator, which advances by the longer of the two.  A sweep whose
+    active set does not fit *repacks*: blocks outside the requested set
+    are dropped (counted as evictions) and the slab is rebuilt from the
+    want set; a want set that cannot fit at all raises with the sizing
+    rule.  The slabs are uploaded only after a staging changed them.  The
+    blocked engine already reads the active ids on the host every sweep,
+    so staging adds no host sync."""
+
+    def __init__(self, g, budget_bytes: int):
+        self.h = _HostEdges(
+            src=g.src.cpu().numpy(), dst=g.dst.cpu().numpy(),
+            in_ptr=g.in_block_ptr.cpu().numpy().astype(np.int64),
+            osrc=g.osrc.cpu().numpy(), odst=g.odst.cpu().numpy(),
+            out_ptr=g.out_block_ptr.cpu().numpy().astype(np.int64))
+        self.device = g.device
+        self.n_blocks = len(self.h.in_ptr) - 1
+        # 4 slab arrays (in src/dst + out src/dst) of int32
+        cap = int(budget_bytes) // (4 * 4)
+        sizes = (np.diff(self.h.in_ptr) + np.diff(self.h.out_ptr))
+        if cap < int(sizes.max(initial=1)) + 1:
+            raise ValueError(
+                f"edge budget {budget_bytes} bytes holds {cap} edges per "
+                f"slab but the largest block needs {int(sizes.max())} — "
+                "raise the budget above max_block_edges * 16 bytes")
+        self.cap = cap
+        self._hsrc = np.zeros(cap, np.int32)
+        self._hdst = np.zeros(cap, np.int32)
+        self._hosrc = np.zeros(cap, np.int32)
+        self._hodst = np.zeros(cap, np.int32)
+        self._in_lo = np.zeros(self.n_blocks, np.int32)
+        self._in_len = np.zeros(self.n_blocks, np.int32)
+        self._out_lo = np.zeros(self.n_blocks, np.int32)
+        self._out_len = np.zeros(self.n_blocks, np.int32)
+        self._resident = np.zeros(self.n_blocks, bool)
+        self._cursor = 0                   # bump allocator over the slab
+        self._dirty = True
+        self._dev: Optional[EdgeView] = None
+        self.counters = {"hits": 0, "misses": 0, "evictions": 0,
+                         "repacks": 0, "transfer_bytes": 0}
+
+    def _stage(self, b: int) -> bool:
+        h = self.h
+        ilo, ihi = int(h.in_ptr[b]), int(h.in_ptr[b + 1])
+        olo, ohi = int(h.out_ptr[b]), int(h.out_ptr[b + 1])
+        need = max(ihi - ilo, ohi - olo)
+        if self._cursor + need > self.cap:
+            return False
+        at = self._cursor
+        self._hsrc[at:at + ihi - ilo] = h.src[ilo:ihi]
+        self._hdst[at:at + ihi - ilo] = h.dst[ilo:ihi]
+        self._hosrc[at:at + ohi - olo] = h.osrc[olo:ohi]
+        self._hodst[at:at + ohi - olo] = h.odst[olo:ohi]
+        self._in_lo[b], self._in_len[b] = at, ihi - ilo
+        self._out_lo[b], self._out_len[b] = at, ohi - olo
+        self._cursor = at + need
+        self._resident[b] = True
+        self._dirty = True
+        return True
+
+    def ensure(self, block_ids: np.ndarray) -> EdgeView:
+        """Stage the given blocks, repacking the slab if they do not fit;
+        returns the device :data:`EdgeView` for the sweep."""
+        ids = np.unique(np.asarray(block_ids, np.int64).reshape(-1))
+        ids = ids[(ids >= 0) & (ids < self.n_blocks)]
+        hit = self._resident[ids]
+        self.counters["hits"] += int(hit.sum())
+        self.counters["misses"] += int((~hit).sum())
+        missing = ids[~hit].tolist()
+        for b in list(missing):
+            if self._stage(int(b)):
+                missing.remove(b)
+        if missing:
+            # repack: keep only the want set, then stage the rest
+            self.counters["repacks"] += 1
+            self.counters["evictions"] += int(
+                (self._resident & ~np.isin(np.arange(self.n_blocks),
+                                           ids)).sum())
+            keep = [int(b) for b in ids if self._resident[b]]
+            self._resident[:] = False
+            self._cursor = 0
+            for b in keep + [int(b) for b in missing]:
+                if not self._stage(b):
+                    raise ValueError(
+                        "active set does not fit the edge slab even after "
+                        "a repack — raise the pager budget")
+        if self._dirty:
+            # on the card an asynchronous copy (no host sync); on the CPU a
+            # copy, so a later staging never writes a view already handed out
+            cpu = self.device.type == "cpu"
+            self._dev = tuple(
+                torch.from_numpy(a.copy()) if cpu
+                else ops._upload(a, self.device) for a in (
+                    self._hsrc, self._hdst, self._hosrc, self._hodst,
+                    self._in_lo, self._in_len, self._out_lo, self._out_len))
+            self.counters["transfer_bytes"] += 4 * 4 * (
+                self.cap + REFERENCE_SLAB_GUARD)
+            self._dirty = False
+        return self._dev
+
+    def stats(self) -> dict:
+        c = self.counters
+        lookups = c["hits"] + c["misses"]
+        return {"slab_edges": int(self.cap),
+                "hit_rate": (c["hits"] / lookups) if lookups else 1.0,
+                **{k: int(v) for k, v in c.items()}}
+
+
+def paged_snapshot(g):
+    """A twin of ``g`` whose O(m) edge arrays are one-element stubs — pass
+    it to ``run_blocked(..., pager=EdgePager(g, budget))`` so the device
+    never holds the full CSR: the pager's bounded slab is then the only
+    O(edges) device allocation.  The per-block pointer tables, the
+    per-vertex in-edge offsets ``in_ptr`` (which a sweep rebases into the
+    slab) and the per-vertex arrays are kept.  Build the
+    :class:`EdgePager` from the original snapshot: it copies the edge
+    arrays to the host."""
+    vptr = g.in_ptr                        # cached on g before the stubs
+    z = torch.zeros(1, dtype=torch.int32, device=g.device)
+    new = dataclasses.replace(g, src=z, dst=z, osrc=z, odst=z)
+    new.__dict__["in_ptr"] = vptr          # the cached_property's slot
+    return new

@@ -16,6 +16,14 @@ compacted block slots (no Pallas kernel): slot *j* reads the ranks,
 tensor always goes to the kernel (a build or launch failure raises; nothing
 falls back), a CPU tensor to the plain version.
 
+A :class:`SweepGraph` addresses each block's edge slices through
+``in_lo``/``in_len`` and ``out_lo``/``out_len``: the snapshot's own CSR
+(:func:`repro_torch.core.blocked.sweep_graph` without a pager), or the
+bounded slab an ``EdgePager`` staged the active blocks into, in which a
+vertex's in-edges start at ``vptr[v] − in_block_ptr[b] + in_lo[b]``.  Both
+routes sum over the slice in the same order either way, so a paged sweep
+is bit-identical to an unpaged one.
+
 Both update ``R``, ``affected`` and ``rc`` in place (the reference's carry
 is immutable; here the sweep owns its state) and return ``(maxdr [1],
 edges [K] int32)``.  ``read`` is ``R`` itself in LF mode and, in BB mode, a
@@ -37,27 +45,34 @@ from repro_torch.kernels import nvcc
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
 MAX_BLOCK = 1024
-_INT32 = ("slot_ids", "in_block_ptr", "out_block_ptr", "vptr", "src", "dst",
-          "osrc", "odst")
+_INT32 = ("slot_ids", "in_block_ptr", "in_lo", "in_len", "out_lo", "out_len",
+          "vptr", "src", "dst", "osrc", "odst")
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "blocked_sweep.cu"
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepGraph:
-    """The snapshot arrays a sweep reads, on one device.  ``vptr`` is each
-    vertex's in-edge range in the dst-sorted arrays; ``inv_deg`` is
-    ``1 / out_deg`` on the valid vertices, 0 on the padding and at the
-    phantom entry ``n_pad``, in the rank dtype."""
+    """The arrays a sweep reads, on one device.  ``in_block_ptr`` and
+    ``vptr`` are each block's and each vertex's in-edge range in the
+    snapshot's dst-sorted edges; block b's in-edge slice is
+    ``src/dst[in_lo[b] : in_lo[b] + in_len[b]]`` and its out-edge slice
+    ``osrc/odst[out_lo[b] : out_lo[b] + out_len[b]]`` (the snapshot's CSR,
+    or a pager's slab); ``inv_deg`` is ``1 / out_deg`` on the valid
+    vertices, 0 on the padding and at the phantom entry ``n_pad``, in the
+    rank dtype."""
     block: int
     n_pad: int
     in_block_ptr: torch.Tensor    # [n_blocks+1] i32
-    out_block_ptr: torch.Tensor   # [n_blocks+1] i32
+    in_lo: torch.Tensor           # [n_blocks] i32
+    in_len: torch.Tensor          # [n_blocks] i32
+    out_lo: torch.Tensor          # [n_blocks] i32
+    out_len: torch.Tensor         # [n_blocks] i32
     vptr: torch.Tensor            # [n_pad+1] i32
-    src: torch.Tensor             # [m_pad] i32, dst-sorted
-    dst: torch.Tensor             # [m_pad] i32
-    osrc: torch.Tensor            # [m_pad] i32, src-sorted
-    odst: torch.Tensor            # [m_pad] i32
+    src: torch.Tensor             # in-edge slices, dst-sorted within each
+    dst: torch.Tensor
+    osrc: torch.Tensor            # out-edge slices, src-sorted within each
+    odst: torch.Tensor
     inv_deg: torch.Tensor         # [n_pad+1] rank dtype
     valid: torch.Tensor           # [n_pad] bool
 
@@ -68,10 +83,11 @@ class SweepGraph:
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    # (dtype, B, tile, expand, K, n_pad), slot_ids, slot_mask, in_ptr,
-    # out_ptr, vptr, src, osrc, odst, inv_deg, valid, R, read, affected, rc,
-    # (alpha, base_rank, tau, tau_f), maxdr, edges, stream
-    lib.blocked_sweep_launch.argtypes = ([i32] * 6 + [ptr] * 14 + [f64] * 4
+    # (dtype, B, tile, expand, K, n_pad), slot_ids, slot_mask, in_blk,
+    # in_lo, in_len, out_lo, out_len, vptr, src, osrc, odst, inv_deg, valid,
+    # R, read, affected, rc, (alpha, base_rank, tau, tau_f), maxdr, edges,
+    # stream
+    lib.blocked_sweep_launch.argtypes = ([i32] * 6 + [ptr] * 17 + [f64] * 4
                                          + [ptr] * 3)
     lib.blocked_sweep_launch.restype = i32
     lib.blocked_sweep_error_string.argtypes = [i32]
@@ -109,7 +125,11 @@ def _check(sg: SweepGraph, R, read, affected, rc, slot_ids, slot_mask,
             "sweep: R is written in place, and reading it would make the "
             "sweep Gauss–Seidel")
     n_pad = sg.n_pad
+    n_blocks = n_pad // sg.block
     shapes = {"R": (R, (n_pad,)), "read": (read, (n_pad,)),
+              "in_block_ptr": (sg.in_block_ptr, (n_blocks + 1,)),
+              **{name: (getattr(sg, name), (n_blocks,))
+                 for name in ("in_lo", "in_len", "out_lo", "out_len")},
               "affected": (affected, (n_pad + 1,)),
               "rc": (rc, (n_pad + 1,)),
               "slot_mask": (slot_mask, tuple(slot_ids.shape)),
@@ -173,7 +193,8 @@ def blocked_sweep_cuda(sg: SweepGraph, R, read, affected, rc, slot_ids,
     rc_code = lib.blocked_sweep_launch(
         _KERNEL_DTYPES[R.dtype], sg.block, tile, int(expand), K, sg.n_pad,
         slot_ids.data_ptr(), slot_mask.data_ptr(), sg.in_block_ptr.data_ptr(),
-        sg.out_block_ptr.data_ptr(), sg.vptr.data_ptr(), sg.src.data_ptr(),
+        sg.in_lo.data_ptr(), sg.in_len.data_ptr(), sg.out_lo.data_ptr(),
+        sg.out_len.data_ptr(), sg.vptr.data_ptr(), sg.src.data_ptr(),
         sg.osrc.data_ptr(), sg.odst.data_ptr(), sg.inv_deg.data_ptr(),
         sg.valid.data_ptr(), R.data_ptr(), read.data_ptr(),
         affected.data_ptr(), rc.data_ptr(), a, base, t, tf,
@@ -198,19 +219,19 @@ def blocked_sweep_plain(sg: SweepGraph, R, read, affected, rc, slot_ids,
                         slot_mask, *, n: int, alpha, tau, tau_f, tile: int,
                         expand: bool, jacobi: bool):
     """The reference's ``lax.scan`` slot by slot: per slot, each ``tile``
-    of the block's in-edges is summed per vertex (``index_add_`` into zeros,
-    in edge order on the CPU) and added to the running sum, then the block's
-    ranks, RC, the running max and — when some vertex moved more than
-    ``tau_f`` — the OR expansion to its out-neighbours.  Reads the slot
-    table and the block ranges on the host once per call."""
+    of the block's in-edge slice is summed per vertex (``index_add_`` into
+    zeros, in edge order on the CPU) and added to the running sum, then the
+    block's ranks, RC, the running max and — when some vertex moved more
+    than ``tau_f`` — the OR expansion to its out-neighbours.  Reads the slot
+    table and the block slices' places on the host once per call."""
     _check(sg, R, read, affected, rc, slot_ids, slot_mask, jacobi, tile)
     B, n_pad, dt, dev = sg.block, sg.n_pad, R.dtype, R.device
     a, base_r, t, tf = (torch.tensor(x, dtype=dt, device=dev)
                         for x in _scalars(dt, n, alpha, tau, tau_f))
     ids = slot_ids.cpu().numpy()
     mask = slot_mask.cpu().numpy()
-    ibp = sg.in_block_ptr.cpu().numpy().astype(np.int64)
-    obp = sg.out_block_ptr.cpu().numpy().astype(np.int64)
+    ilo, ilen, olo_h, olen = (t.cpu().numpy().astype(np.int64) for t in (
+        sg.in_lo, sg.in_len, sg.out_lo, sg.out_len))
     K = len(ids)
     edges = np.zeros(K, np.int64)
     maxdr = torch.zeros((), dtype=dt, device=dev)
@@ -219,7 +240,7 @@ def blocked_sweep_plain(sg: SweepGraph, R, read, affected, rc, slot_ids,
         if not mask[j] or b < 0:
             continue
         base = b * B
-        lo, hi = int(ibp[b]), int(ibp[b + 1])
+        lo, hi = int(ilo[b]), int(ilo[b] + ilen[b])
         blk = slice(base, base + B)
         s = sg.src[lo:hi].long()
         c = read[s.clamp(max=n_pad - 1)] * sg.inv_deg[s]
@@ -244,7 +265,7 @@ def blocked_sweep_plain(sg: SweepGraph, R, read, affected, rc, slot_ids,
         changed = upd & (dr > tf)
         if not bool(changed.any()):
             continue
-        olo, ohi = int(obp[b]), int(obp[b + 1])
+        olo, ohi = int(olo_h[b]), int(olo_h[b] + olen[b])
         lsrc = (sg.osrc[olo:ohi].long() - base).clamp(0, B - 1)
         tgt = torch.where(changed[lsrc], sg.odst[olo:ohi].long(), n_pad)
         affected[tgt] = True

@@ -4,12 +4,21 @@
 // jitted lax.scan over the compacted block slots (blocked.py:166-183), in
 // which slot j reads the ranks, `affected` and `RC` that slots < j wrote.
 //
-// Operands (all on one device).  Per snapshot: in_ptr/out_ptr [n_blocks+1]
-// int32, the block's in-edge (dst-sorted) and out-edge (src-sorted) ranges;
-// vptr [n_pad+1] int32, each vertex's in-edge range in the dst-sorted
-// arrays; src [m_pad], osrc/odst [m_pad] int32; inv_deg [n_pad+1] in the
-// rank type, 1/out_deg on valid vertices and 0 on the padding and on the
-// phantom entry n_pad; valid [n_pad] bool.  Per sweep: slot_ids [K] int32
+// Operands (all on one device).  Per snapshot: in_blk [n_blocks+1] int32,
+// each block's in-edge range in the snapshot's dst-sorted edges; vptr
+// [n_pad+1] int32, each vertex's in-edge range there; in_lo/in_len and
+// out_lo/out_len [n_blocks] int32, where the block's in-edge (dst-sorted)
+// and out-edge (src-sorted) slices lie in src and osrc/odst; src, osrc,
+// odst int32; inv_deg [n_pad+1] in the rank type, 1/out_deg on valid
+// vertices and 0 on the padding and on the phantom entry n_pad; valid
+// [n_pad] bool.  Unpaged, the slices are the snapshot's own (in_lo =
+// in_blk[b], in_len = in_blk[b+1] - in_blk[b], the same for out); paged
+// (src/repro_torch/core/tiering.py::EdgePager), each active block's slices
+// are staged at in_lo[b] / out_lo[b] of a bounded slab, and a vertex's
+// range moves with its block's: vptr[v] - in_blk[b] + in_lo[b].  Tile
+// boundaries and the trash lanes are relative to the slice's start, so a
+// paged sweep does the same arithmetic in the same order as an unpaged one
+// and is bit-identical to it.  Per sweep: slot_ids [K] int32
 // (-1 = empty slot), slot_mask [K] bool; R [n_pad] (written in place), read
 // (R itself for LF, a copy of R taken before the sweep for BB), affected and
 // rc [n_pad+1] bool (entry n_pad is the expansion's trash slot, as in the
@@ -65,7 +74,9 @@ template <typename T>
 __global__ void __launch_bounds__(kMaxBlock) sweep_kernel(
     int B, int tile, int expand, int K, int n_pad,
     const int* __restrict__ slot_ids, const uint8_t* __restrict__ slot_mask,
-    const int* __restrict__ in_ptr, const int* __restrict__ out_ptr,
+    const int* __restrict__ in_blk, const int* __restrict__ in_lo,
+    const int* __restrict__ in_len, const int* __restrict__ out_lo,
+    const int* __restrict__ out_len,
     const int* __restrict__ vptr, const int* __restrict__ src,
     const int* __restrict__ osrc, const int* __restrict__ odst,
     const T* __restrict__ inv_deg, const uint8_t* __restrict__ valid,
@@ -84,7 +95,8 @@ __global__ void __launch_bounds__(kMaxBlock) sweep_kernel(
       continue;
     }
     const int base = b * B;
-    const int lo = in_ptr[b], hi = in_ptr[b + 1];
+    const int lo = in_lo[b], hi = lo + in_len[b];
+    const int shift = lo - in_blk[b];     // snapshot offsets -> the slice's
 
     // 1. the pull, for the block's vertices that update
     bool upd = false;
@@ -93,7 +105,7 @@ __global__ void __launch_bounds__(kMaxBlock) sweep_kernel(
       const int v = base + tid;
       upd = affected[v] && valid[v];
       if (upd) {
-        const int e0 = vptr[v], e1 = vptr[v + 1];
+        const int e0 = vptr[v] + shift, e1 = vptr[v + 1] + shift;
         int boundary = lo + ((e0 - lo) / tile + 1) * tile;
         T acc = T(0), part = T(0);
         for (int e = e0; e < e1; ++e) {
@@ -128,7 +140,7 @@ __global__ void __launch_bounds__(kMaxBlock) sweep_kernel(
     // 5. expansion to the out-neighbours of the changed vertices
     int e_out = 0;
     if (expand && any) {
-      const int olo = out_ptr[b], ohi = out_ptr[b + 1];
+      const int olo = out_lo[b], ohi = olo + out_len[b];
       for (int e = olo + tid; e < ohi; e += blockDim.x) {
         const int l = min(max(osrc[e] - base, 0), B - 1);
         const int w = changed_sh[l] ? odst[e] : n_pad;
@@ -159,7 +171,8 @@ __global__ void __launch_bounds__(kMaxBlock) sweep_kernel(
 
 template <typename T>
 int launch(int B, int tile, int expand, int K, int n_pad, const void* slot_ids,
-           const void* slot_mask, const void* in_ptr, const void* out_ptr,
+           const void* slot_mask, const void* in_blk, const void* in_lo,
+           const void* in_len, const void* out_lo, const void* out_len,
            const void* vptr, const void* src, const void* osrc, const void* odst,
            const void* inv_deg, const void* valid, void* R, const void* read,
            void* affected, void* rc, double alpha, double base_rank, double tau,
@@ -168,8 +181,10 @@ int launch(int B, int tile, int expand, int K, int n_pad, const void* slot_ids,
   if (threads < kMinThreads) threads = kMinThreads;
   sweep_kernel<T><<<1, threads, 0, stream>>>(
       B, tile, expand, K, n_pad, static_cast<const int*>(slot_ids),
-      static_cast<const uint8_t*>(slot_mask), static_cast<const int*>(in_ptr),
-      static_cast<const int*>(out_ptr), static_cast<const int*>(vptr),
+      static_cast<const uint8_t*>(slot_mask), static_cast<const int*>(in_blk),
+      static_cast<const int*>(in_lo), static_cast<const int*>(in_len),
+      static_cast<const int*>(out_lo), static_cast<const int*>(out_len),
+      static_cast<const int*>(vptr),
       static_cast<const int*>(src), static_cast<const int*>(osrc),
       static_cast<const int*>(odst), static_cast<const T*>(inv_deg),
       static_cast<const uint8_t*>(valid), static_cast<T*>(R),
@@ -184,8 +199,9 @@ int launch(int B, int tile, int expand, int K, int n_pad, const void* slot_ids,
 // dtype: 0 = float32, 1 = float64.  Returns a cudaError_t (0 = launched).
 extern "C" int blocked_sweep_launch(
     int dtype, int B, int tile, int expand, int K, int n_pad,
-    const void* slot_ids, const void* slot_mask, const void* in_ptr,
-    const void* out_ptr, const void* vptr, const void* src, const void* osrc,
+    const void* slot_ids, const void* slot_mask, const void* in_blk,
+    const void* in_lo, const void* in_len, const void* out_lo,
+    const void* out_len, const void* vptr, const void* src, const void* osrc,
     const void* odst, const void* inv_deg, const void* valid, void* R,
     const void* read, void* affected, void* rc, double alpha, double base_rank,
     double tau, double tau_f, void* maxdr, void* edges, void* stream) {
@@ -193,15 +209,15 @@ extern "C" int blocked_sweep_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(B, tile, expand, K, n_pad, slot_ids, slot_mask, in_ptr,
-                         out_ptr, vptr, src, osrc, odst, inv_deg, valid, R, read,
-                         affected, rc, alpha, base_rank, tau, tau_f, maxdr,
-                         edges, s);
+    return launch<float>(B, tile, expand, K, n_pad, slot_ids, slot_mask, in_blk,
+                         in_lo, in_len, out_lo, out_len, vptr, src, osrc, odst,
+                         inv_deg, valid, R, read, affected, rc, alpha,
+                         base_rank, tau, tau_f, maxdr, edges, s);
   if (dtype == 1)
-    return launch<double>(B, tile, expand, K, n_pad, slot_ids, slot_mask, in_ptr,
-                          out_ptr, vptr, src, osrc, odst, inv_deg, valid, R,
-                          read, affected, rc, alpha, base_rank, tau, tau_f,
-                          maxdr, edges, s);
+    return launch<double>(B, tile, expand, K, n_pad, slot_ids, slot_mask,
+                          in_blk, in_lo, in_len, out_lo, out_len, vptr, src,
+                          osrc, odst, inv_deg, valid, R, read, affected, rc,
+                          alpha, base_rank, tau, tau_f, maxdr, edges, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

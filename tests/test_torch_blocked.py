@@ -35,6 +35,7 @@ from repro_torch.api.session import PageRankSession as TSession
 from repro_torch.core import blocked as tblk
 from repro_torch.core import frontier as tfr
 from repro_torch.core import pagerank as tpr
+from repro_torch.core import tiering
 from repro_torch.core.fault_domain import (FaultDomain, ThreadFaultDomain,
                                            resolve_thread_plan)
 from repro_torch.core.faults import FaultPlan
@@ -275,10 +276,19 @@ def test_run_blocked_static_and_tile_match_reference(fault_setup):
 
 
 def test_run_blocked_rejects_a_pager_and_bad_modes(fault_setup):
+    """A real pager runs, as the reference's does (its paged run equal to
+    the unpaged one; tests/test_torch_pager.py has the twins); bad modes
+    and policies raise."""
     tg = fault_setup["tg1"]
     R0 = tpr.initial_ranks(tg)
-    with pytest.raises(NotImplementedError, match="A 10"):
-        tblk.run_blocked(tg, R0, tg.vertex_valid, pager=object())
+    base, st0 = tblk.run_blocked(tg, R0, tg.vertex_valid, expand=False,
+                                 tau=TAU)
+    pager = tiering.EdgePager(tg, budget_bytes=1 << 24)
+    paged, st1 = tblk.run_blocked(tiering.paged_snapshot(tg), R0,
+                                  tg.vertex_valid, expand=False, tau=TAU,
+                                  pager=pager)
+    assert torch.equal(base, paged) and st1 == st0
+    assert pager.counters["misses"] > 0
     with pytest.raises(ValueError):
         tblk.run_blocked(tg, R0, tg.vertex_valid, mode="xx")
     with pytest.raises(ValueError):

@@ -4,8 +4,10 @@ the card, a stream on the card against the same stream on the CPU (pull and
 push drivers), the push path's residual scatter, host syncs and masking
 of the kernel's undefined rows, and the variant matrix (dt, the replays,
 snapshot mode, the dense engine) on the card against the CPU, the blocked
-engine's Gauss–Seidel sweep kernel against its plain version, and a tiered
-session (the kernels reading the packed hot slab) against the CPU.
+engine's Gauss–Seidel sweep kernel against its plain version (over the
+snapshot's CSR and over an ``EdgePager``'s slab, the paged sweep bit-equal
+to the unpaged one), and tiered pull and push sessions (the kernels
+reading the packed hot slab) against the CPU.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -706,4 +708,122 @@ def test_cuda_kernels_read_the_slab_view(cuda_device):
                                          view.index, xs, **kw)
         torch.testing.assert_close(act[rows], ref[rows], rtol=1e-12,
                                    atol=1e-12)
+    gs.close(), cs.close()
+
+
+# ---------------------------------------------------------------------------
+# paged edges (EdgePager) and the tiered push driver
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lf", "bb"])
+@pytest.mark.parametrize("tile", [64, 512])
+def test_cuda_paged_sweep_equals_unpaged(cuda_device, mode, tile):
+    """The sweep kernel over a pager's slab (the slot list's blocks staged
+    in another order than the CSR's) is bit-identical to the kernel over
+    the snapshot's CSR, and equals the plain version over the same slab."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.core import tiering
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    kw = dict(alpha=0.85, tau=1e-10, tau_f=1e-13, tile=tile, expand=True,
+              jacobi=mode == "bb")
+    for i, hg in enumerate(_sweep_graphs()):
+        g = hg.snapshot(block_size=64, device="cpu")
+        gc = hg.snapshot(block_size=64, device=cuda_device)
+        R, aff, ids, mask = _sweep_inputs(g, torch.float64, seed=7 + i)
+        live = ids.numpy()[(ids.numpy() >= 0) & mask.numpy()]
+        staged = np.random.default_rng(i).permutation(live)
+        pager = tiering.EdgePager(gc, budget_bytes=1 << 24)
+        pager.ensure(staged[:len(staged) // 2])
+        view = pager.ensure(live)
+        cpu_view = tuple(t.cpu() for t in view)
+        pg, pgc = tiering.paged_snapshot(g), tiering.paged_snapshot(gc)
+        dev = [t.to(cuda_device) for t in (R, aff, ids, mask)]
+        full = _run_sweep(bws.blocked_sweep_cuda,
+                          blk.sweep_graph(gc, torch.float64), *dev, gc, **kw)
+        paged = _run_sweep(bws.blocked_sweep_cuda,
+                           blk.sweep_graph(pgc, torch.float64, view), *dev,
+                           gc, **kw)
+        plain = _run_sweep(bws.blocked_sweep_plain,
+                           blk.sweep_graph(pg, torch.float64, cpu_view), R,
+                           aff, ids, mask, g, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(full, paged):
+            assert torch.equal(a, b)
+        Rk, affk, rck, mk, ek = (t.cpu() for t in paged)
+        Rp, affp, rcp, mp, ep = plain
+        assert torch.equal(affk, affp) and torch.equal(rck, rcp)
+        assert torch.equal(ek, ep)
+        torch.testing.assert_close(Rk, Rp, rtol=0, atol=TOLS[torch.float64])
+
+
+@pytest.mark.cuda
+def test_cuda_paged_run_blocked_equals_unpaged(cuda_device):
+    """``run_blocked(pager=)`` on the card: bit-equal to the unpaged run on
+    the card, its counters and the pager's equal to the CPU's paged run."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.core import frontier as fr
+    from repro_torch.core import tiering
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.pagerank import numpy_reference
+    from repro_torch.graphs.generators import grid_road
+    hg0 = grid_road(48, seed=7)
+    dels, ins = random_batch(hg0, 1e-3, seed=2, deletions_frac=0.2)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        g0 = hg0.snapshot(block_size=64, device=dev)
+        g1 = hg0.apply_batch(dels, ins).snapshot(block_size=64, device=dev)
+        aff = fr.initial_affected(g0, g1, fr.batch_to_device(g1, dels, ins))
+        r_prev = torch.from_numpy(numpy_reference(g0, iterations=300))
+        kw = dict(mode="lf", active_policy="rc", tau=1e-10)
+        pager = tiering.EdgePager(g1, budget_bytes=16 * int(g1.m_pad))
+        paged = blk.run_blocked(tiering.paged_snapshot(g1), r_prev, aff,
+                                pager=pager, **kw)
+        out[str(dev)] = (paged, blk.run_blocked(g1, r_prev, aff, **kw),
+                         pager.stats())
+    (pc, sc), _, stc = out["cpu"]
+    (pg, sg), (ug, usg), stg = out[str(cuda_device)]
+    assert torch.equal(pg, ug) and sg == usg
+    assert sg == sc and stg == stc and stg["misses"] > 0
+    assert float((pg.cpu() - pc).abs().max()) <= TOLS[torch.float64]
+
+
+@pytest.mark.cuda
+def test_cuda_tiered_push_session_matches_cpu(cuda_device):
+    """A half-budget push session on the card (kernel #2 over the packed
+    slab, the residual refresh included) against the same session on the
+    CPU: tiering counters, sweeps, edges and pushed blocks equal, ranks
+    within 1e-12, the residual within 1e-12 of host truth."""
+    from repro_torch.api import EngineConfig, PageRankSession
+    from repro_torch.core import tiering
+    from repro_torch.core.push_engine import residual_from_host
+    from repro_torch.graphs.generators import grid_road
+    hg = grid_road(32, seed=7)
+    g0 = hg.snapshot(block_size=64, device="cpu")
+    src, dst = g0.in_edges_host()
+    pool = tiering.HostTilePool.from_edges(dst, src, g0.n_pad, g0.n_pad,
+                                           block=64, dtype=np.float64)
+    cfg = EngineConfig(block_size=64, tau=1e-10, driver="push",
+                       device_budget_bytes=int(pool.nbytes) // 2)
+    rng = np.random.default_rng(11)
+    stream = [(np.zeros((0, 2), np.int64), rng.integers(0, hg.n, (16, 2)))
+              for _ in range(3)]
+    out = []
+    launches = bsk.block_spmv_active_cuda.launches
+    for dev in (cuda_device, "cpu"):
+        sess = PageRankSession.from_graph(hg, config=cfg, device=dev)
+        sess.warmup()
+        out.append((sess, [sess.update(d, i) for d, i in stream]))
+    (gs, gres), (cs, cres) = out
+    assert bsk.block_spmv_active_cuda.launches > launches
+    gt, ct = gs.report().tiering, cs.report().tiering
+    for k in ("hits", "misses", "evictions", "admitted_tiles",
+              "transfer_bytes", "refill_drives", "resident_blocks"):
+        assert gt[k] == ct[k], k
+    assert gt["refill_drives"] > 0 and gt["evictions"] > 0
+    for a, b in zip(gres, cres):
+        assert a.stats == b.stats and a.pushed_blocks == b.pushed_blocks
+    assert np.abs(gs.ranks - cs.ranks).max() <= 1e-12
+    host = residual_from_host(gs.hg, gs._out_deg_host, gs.ranks, 0.85)
+    assert np.abs(gs._residual.cpu().numpy() - host).max() <= 1e-12
     gs.close(), cs.close()

@@ -180,30 +180,40 @@ class _ProcessDomain(FaultDomain):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # a pull stream with a budget runs since A 10a; the push refill is A 10b
-    ({"driver": "push", "device_budget_bytes": 1 << 20}, "A 10"),
+    # a stream with a budget runs since A 10a (pull) and A 10b (push): the
+    # cases with item None construct
+    ({"driver": "push", "device_budget_bytes": 1 << 20}, None),
     ({"topology": "sharded"}, "A 14"),
     ({"walks_per_vertex": 4}, "A 13"),
     ({"walk_length": 8}, "A 13"),
     ({"walk_seed": 1}, "A 13"),
-    # durability="wal" runs since A 9 and tiers under the pull driver since
-    # A 10a; a durable push stream with a budget still refuses
+    # durability="wal" runs since A 9 and tiers under either driver since
+    # A 10b
     ({"durability": "wal", "driver": "push", "device_budget_bytes": 1 << 20},
-     "A 10"),
+     None),
     ({"integrity": {"mass_tol": 1e-6}}, "A 11"),
     ({"fault_domain": _ProcessDomain()}, "A 11"),
     # the blocked engine and the dense engine's LF mode run since A 7; the
     # later axes still refuse on them
     # a budget on the blocked engine gets the reference's ValueError
-    # (test_budget_config_rules); naming the pallas engine outright still
-    # meets the push refill's refusal
+    # (test_budget_config_rules); naming the pallas engine outright
+    # constructs a tiered push stream
     ({"engine": "pallas", "driver": "push", "device_budget_bytes": 1 << 20},
-     "A 10"),
+     None),
     ({"engine": "dense", "fault_domain": _ProcessDomain()}, "A 11"),
     ({"engine": "walk"}, "A 13"),
     ({"engine": "distributed"}, "A 14"),
 ])
 def test_out_of_slice_config_raises(kw, item):
+    if item is None:
+        # ported: the config constructs, as the reference's does (whose
+        # default engine off the TPU is "blocked": name the pallas engine)
+        cfg = TConfig(**kw)
+        assert JConfig(**{"engine": "pallas", **kw}).device_budget_bytes \
+            == cfg.device_budget_bytes
+        assert (cfg.driver, cfg.durability) == (
+            kw["driver"], kw.get("durability", "none"))
+        return
     with pytest.raises(NotImplementedError, match=item):
         TConfig(**kw)
 
