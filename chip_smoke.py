@@ -127,12 +127,31 @@ Phases, each of which raises (non-zero exit) on any failed check:
    batch). It prints per update the wall, sweeps, pushed blocks, edges,
    host syncs and refill rounds, ``df`` p50/p95 beside phase 6's, the card
    memory beside phase 6's session, ``report().device_bytes`` and
-   ``report().tiering``.
+   ``report().tiering``;
+12. integrity (``EngineConfig(integrity=...)``, the corruption domain)
+   after phase 11, with the launch counters zeroed just before and read at
+   the end: a durable session with ``mass_tol = n·τ`` and
+   ``auto_repair=False`` streams phase 3's df batches (the same host syncs
+   as phase 3, ranks within 1e-8 of phase 3's); a clean deep ``verify()``
+   is timed and split into its parts; each corruption kind (``rank``,
+   ``tile``, ``slot``, ``mirror``, ``scatter_drop``, ``scatter_dup`` —
+   these two tear the update after them — and ``graph``) is injected and
+   must be found by its check and healed at its rung (``frontier`` for
+   ``rank``, ``restore`` for ``graph``, ``rebuild`` otherwise) with
+   ``block_spmv_active`` launched in the repair, then verify clean within
+   1e-8 of phase 3's ranks (each rung timed alone and with its re-check);
+   one more ``df`` update of that session under ``cProfile``; a deferred
+   ``tile`` meets the fused gate of an
+   auto-repairing session (printed whether it flagged) and must end
+   clean; phase 10's half-budget tiered session, kept open, verifies clean
+   (timed, its slab scrub apart) and heals a ``rank`` flip at
+   ``frontier``.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
 path's (phase 8), the durable path's (phase 9), the tiered path's
-(phase 10) and the tiered push path's (phase 11).  Prints the
+(phase 10), the tiered push path's (phase 11) and the integrity path's
+(phase 12).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -1865,7 +1884,8 @@ def _tiered_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
     to phase 3 and its oracle; a full-budget one warm-starts from phase
     3's opening ranks; the half-budget one is saved, restored untiered and
     under the full budget (bit for bit) and forked.  Returns the path's
-    launch counts and the host pool's bytes."""
+    launch counts, the host pool's bytes and the half-budget session's df
+    walls (ms)."""
     from repro_torch.api.config import EngineConfig
     from repro_torch.api.session import PageRankSession, SweepCapWarning
     from repro_torch.core import tiering
@@ -2021,8 +2041,7 @@ def _tiered_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
     print(f"fork of the half-budget session: {fork_s:.2f} s; the parent "
           f"took one more batch, the child's ranks did not move", flush=True)
     child.close()
-    sess.close()
-    del child, sess
+    del child
     torch.cuda.empty_cache()
 
     # -- the full budget, warm-started from phase 3's opening ranks --------
@@ -2048,14 +2067,15 @@ def _tiered_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
            "converge")
     _check(e_full <= 1e-8, f"full-budget ranks off phase 3: {e_full}")
     full.close()
-    del full
+    sess.close()
+    del full, sess
     torch.cuda.empty_cache()
     launches = {"block_spmv": bsk.block_spmv_cuda.launches,
                 "block_spmv_active": bsk.block_spmv_active_cuda.launches,
                 "blocked_sweep": 0}
     print(f"launches on the tiered path: {launches}; phase 10 took "
           f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
-    return launches, pool_bytes
+    return launches, pool_bytes, walls
 
 
 # ---------------------------------------------------------------------------
@@ -2168,6 +2188,251 @@ def _tiered_push_phase(bsk, hg, batches, nd_batch, budget: int, p3: dict,
     sess.close()
     del sess
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: integrity and the repair ladder on the main path's graph
+# ---------------------------------------------------------------------------
+
+# each kind, the check that must find it and the rung that must heal it
+# (tests/test_integrity.py); the scatter kinds tear the update after them
+KIND_CHECK_RUNG = (("rank", "rank_drift", "frontier"),
+                   ("tile", "tile_sums", "rebuild"),
+                   ("slot", "slot_tables", "rebuild"),
+                   ("mirror", "mirror_digest", "rebuild"),
+                   ("scatter_drop", "mirror_digest", "rebuild"),
+                   ("scatter_dup", "mirror_digest", "rebuild"),
+                   ("graph", "graph_digest", "restore"))
+
+
+def _ms(seconds: dict) -> dict:
+    return {k: round(v * 1e3, 2) for k, v in seconds.items()}
+
+
+def _integrity_phase(bsk, hg, batches, nd_batch, p3: dict, budget: int,
+                     tier_ms, smi: str) -> dict:
+    """Phase 12: the corruption domain at n = 1M, after phase 11.  A durable
+    session with ``integrity=`` streams phase 3's batches (the same host
+    syncs, ranks within 1e-8 of phase 3's); a clean deep ``verify()`` is
+    timed, split by the session's own part timings; each corruption kind
+    is injected and must be found by its check, healed at its rung (kernel
+    #2 launched in every repair drive) and end clean within 1e-8 of phase
+    3's ranks; a deferred ``tile`` meets the fused gate of an
+    auto-repairing session.  Then a tiered session with ``integrity=`` at
+    phase 10's half budget (``budget``), warm-started from phase 3's
+    opening ranks, streams phase 3's first batches under the fused gate
+    (no alert, ranks within 1e-8 of phase 3's; ``df`` p50 beside phase
+    10's ``tier_ms``), verifies clean and repairs a ``rank`` flip at
+    ``frontier``.  Returns the phase's launch counts."""
+    from repro_torch.api import EngineConfig, IntegrityConfig, PageRankSession
+    from repro_torch.api.session import SweepCapWarning
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.incremental import effective_batch
+    t_phase = time.perf_counter()
+    n = hg.n
+    # a converged pull iterate leaves |sum - 1| up to n * tau, above the
+    # default mass_tol (calibrated for n <= ~1e4)
+    mass_tol = n * TAU
+    print(f"integrity: mass_tol = n * tau = {mass_tol:.6e} (default "
+          f"{IntegrityConfig().mass_tol:g})", flush=True)
+    icfg = IntegrityConfig(mass_tol=mass_tol, auto_repair=False)
+    store = STORE_ROOT / "integrity"
+    shutil.rmtree(store, ignore_errors=True)
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU,
+                       integrity=icfg, durability="wal")
+
+    def linf_to(ranks, ref):
+        return _linf(ranks, ref, n)
+
+    def active():
+        return bsk.block_spmv_active_cuda.launches
+
+    # -- the path: launch counters zeroed just before, read at the end -----
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda",
+                                      store_dir=str(store))
+    torch.cuda.synchronize()
+    print(f"integrity session open (durable, cold solve): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sess.warmup()
+    df = []
+    for dels, ins in batches:
+        df.append(sess.update(dels, ins, variant="df"))
+        torch.cuda.synchronize()
+    walls = np.array([r.wall_time_s for r in df]) * 1e3
+    syncs = [r.host_syncs for r in df]
+    e_df = linf_to(sess.ranks, p3["r_df"])
+    print(f"integrity df p50 {np.percentile(walls, 50):.2f} ms, p95 "
+          f"{np.percentile(walls, 95):.2f} ms beside phase 3's p50 "
+          f"{np.percentile(p3['df_ms'], 50):.2f} ms (durable + integrity=);"
+          f" host syncs {syncs} beside phase 3's {p3['syncs']}; L_inf "
+          f"{e_df:.3e} to phase 3's df ranks; fused alert "
+          f"{sess._integrity_alert} [{smi}]", flush=True)
+    _check(all(r.converged for r in df), "an integrity df update did not "
+           "converge")
+    _check(syncs == p3["syncs"], f"integrity= changed the host syncs: "
+           f"{syncs} against {p3['syncs']}")
+    _check(e_df <= 1e-8, f"integrity df ranks off phase 3: {e_df}")
+
+    # -- a clean deep verify, timed and split ------------------------------
+    torch.cuda.synchronize()
+    rep = sess.verify(repair=False, deep=True)
+    print(f"clean verify(deep): checks_run {rep.checks_run}, wall_time_s "
+          f"{rep.wall_time_s:.4f}, mass_error {rep.mass_error:.3e}; its "
+          f"parts (ms): {_ms(rep.split_s)} [{smi}]", flush=True)
+    _check(rep.ok and not rep.failures, f"clean verify failed: "
+           f"{rep.failures}")
+
+    # -- every kind: detected by its check, healed at its rung -------------
+    dels_e, ins_e = effective_batch(sess.hg, *nd_batch)
+    inverse = (ins_e, dels_e)       # takes phase 3's nd batch back out
+    # a rung's RecoveryRecord spans the rung and the re-check after it (the
+    # reference's accounting); the report's rung_s times the rung alone
+    for seed, (kind, check, rung) in enumerate(KIND_CHECK_RUNG):
+        sess.inject_corruption(kind, seed=seed)
+        want = p3["r_df"]
+        if kind == "scatter_drop":
+            sess.update(*nd_batch, variant="nd")     # the torn update
+            want = p3["r_nd"]
+        elif kind == "scatter_dup":
+            sess.update(*inverse, variant="df")
+        torch.cuda.synchronize()
+        a0 = active()
+        rep = sess.verify(repair=True, deep=True)
+        torch.cuda.synchronize()
+        rec = sess._recoveries[-1] if sess._recoveries else None
+        after = sess.verify(repair=False, deep=True)
+        err = linf_to(sess.ranks, want)
+        found = [f["check"] for f in rep.failures]
+        print(f"integrity {kind}: found by {found}, repairs {rep.repairs}, "
+              f"verify {rep.wall_time_s:.3f} s (detection "
+              f"{sum(rep.split_s.values()):.3f} s), rung {rung} "
+              f"{rep.rung_s.get(rung, float('nan')):.3f} s alone, "
+              f"{rec.wall_time_s if rec else float('nan'):.3f} s with its "
+              f"re-check (its RecoveryRecord), block_spmv_active launches "
+              f"{active() - a0}, then clean {after.ok}, L_inf {err:.3e} to "
+              f"phase 3's [{smi}]", flush=True)
+        _check(check in found, f"{kind} was not found by {check}: {found}")
+        _check(rep.ok and rep.repairs == [rung],
+               f"{kind} was not healed at {rung}: {rep.repairs}")
+        _check(rec is not None and rec.rung == rung
+               and rec.domain == "corruption", f"{kind}: no {rung} record")
+        _check(active() > a0, f"the {rung} repair of {kind} launched no "
+               "block_spmv_active")
+        _check(after.ok and not after.failures,
+               f"{kind}: not clean after the repair: {after.failures}")
+        _check(err <= 1e-8, f"{kind}: ranks off phase 3 after the repair: "
+               f"{err}")
+    integ = sess.report().integrity
+    print(f"integrity report: {integ}", flush=True)
+    _check(integ["corruption_detected"] == len(KIND_CHECK_RUNG),
+           f"corruption_detected {integ['corruption_detected']}")
+    hg_df, r_df = sess.hg, sess.R.clone()
+    # where an integrity= df update's time goes (one more batch; the
+    # session closes after it)
+    print("integrity= and durable, one more df update:", flush=True)
+    _profile_update(sess, random_batch)
+    sess.close()
+    del sess
+    torch.cuda.empty_cache()
+    shutil.rmtree(store, ignore_errors=True)
+
+    # -- a deferred tile flip against the fused gate (auto repair) ---------
+    auto = PageRankSession.from_graph(
+        hg_df, config=EngineConfig(
+            block_size=BLOCK, dtype=torch.float64, tau=TAU,
+            integrity=dataclasses.replace(icfg, auto_repair=True)),
+        r0=r_df, device="cuda")
+    auto.inject_corruption("tile", seed=5, defer=True)
+    res = auto.update(*nd_batch, variant="df")
+    torch.cuda.synchronize()
+    fused = [e for e in auto.report().recovery_events
+             if e["domain"] == "corruption"]
+    rep = auto.verify()
+    after = auto.verify(repair=False)
+    err = linf_to(auto.ranks, p3["r_nd"])
+    print(f"deferred tile, auto_repair: the fused gate "
+          f"{'flagged' if fused else 'did not flag'} it (update "
+          f"{res.wall_time_s * 1e3:.2f} ms, host syncs {res.host_syncs}, "
+          f"repairs in the update {[e['rung'] for e in fused]}); the next "
+          f"verify found {[f['check'] for f in rep.failures]}, repairs "
+          f"{rep.repairs}; then clean {after.ok}; L_inf {err:.3e} to phase "
+          f"3's nd ranks [{smi}]", flush=True)
+    _check(rep.ok and after.ok and not after.failures,
+           f"the deferred tile was not healed: {rep.failures}")
+    _check(err <= 1e-8, f"deferred tile: ranks off phase 3: {err}")
+    auto.close()
+    del auto
+    torch.cuda.empty_cache()
+
+    # -- a tiered session under the fused gate -----------------------------
+    # phase 10's half budget, warm-started from phase 3's opening ranks; its
+    # df drives gate mass only once no deferred block is pending
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", SweepCapWarning)
+        t0 = time.perf_counter()
+        tiered = PageRankSession.from_graph(
+            hg, config=cfg.replace(
+                durability="none", device_budget_bytes=budget,
+                max_iterations=TIERED_MAX_ITERATIONS),
+            r0=p3["r_open"], device="cuda")
+        tiered.warmup()
+        t_open = time.perf_counter() - t0
+        tdf = []
+        for dels, ins in batches[:N_CHILD_UPDATES]:
+            tdf.append(tiered.update(dels, ins, variant="df"))
+            torch.cuda.synchronize()
+            _check(tiered._integrity_alert is None, f"the fused gate "
+                   f"flagged a clean tiered drive: {tiered._integrity_alert}")
+    twalls = np.array([r.wall_time_s for r in tdf]) * 1e3
+    e_t = _linf(tiered.ranks, p3[f"r_{N_CHILD_UPDATES}"], n)
+    print(f"tiered + integrity= (half budget, warm start): open "
+          f"{t_open:.2f} s; df p50 {np.percentile(twalls, 50):.2f} ms over "
+          f"{len(tdf)} updates beside phase 10's p50 "
+          f"{np.percentile(tier_ms, 50):.2f} ms; host syncs "
+          f"{[r.host_syncs for r in tdf]}; fused checks "
+          f"{tiered.report().integrity['checks_run']}, no alert; L_inf "
+          f"{e_t:.3e} to phase 3's ranks after the same batches [{smi}]",
+          flush=True)
+    _check(all(r.converged for r in tdf), "a tiered integrity df update "
+           "did not converge")
+    _check(e_t <= 1e-8, f"tiered integrity ranks off phase 3: {e_t}")
+    rep = tiered.verify(repair=False, deep=True)
+    r_before = tiered.ranks
+    tiered.inject_corruption("rank", seed=11)
+    a0 = active()
+    rrep = tiered.verify(repair=True, deep=True)
+    after = tiered.verify(repair=False, deep=True)
+    err = _linf(tiered.ranks, r_before, n)
+    print(f"tiered verify(deep), half budget: {rep.wall_time_s:.3f} s clean "
+          f"(checks_run {rep.checks_run}; parts (ms) {_ms(rep.split_s)}, "
+          f"hot_slab over {int(tiered.hot.resident.sum())} resident "
+          f"row-blocks); rank flip found by "
+          f"{[f['check'] for f in rrep.failures]}, repairs {rrep.repairs} "
+          f"in {rrep.wall_time_s:.3f} s (rung alone "
+          f"{_ms(rrep.rung_s)} ms), block_spmv_active launches "
+          f"{active() - a0}, then clean {after.ok}, L_inf {err:.3e} to the "
+          f"ranks before [{smi}]", flush=True)
+    _check(rep.ok and not rep.failures, f"tiered verify not clean: "
+           f"{rep.failures}")
+    _check(rrep.ok and rrep.repairs == ["frontier"],
+           f"the tiered rank flip was not healed at frontier: "
+           f"{rrep.repairs}")
+    _check(after.ok and err <= 1e-8, f"tiered state after the repair: "
+           f"{after.failures}, {err}")
+    _check(active() > a0, "the tiered frontier repair launched no "
+           "block_spmv_active")
+    tiered.close()
+    del tiered
+    torch.cuda.empty_cache()
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches,
+                "blocked_sweep": 0}
+    print(f"launches on the integrity path: {launches}; phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
     return launches
 
 
@@ -2347,22 +2612,28 @@ def main() -> None:
 
     # -- phase 10: the tiered pull path, on phase 3's graph and batches -----
     p3 = {"r_open": r_open, "r_df": kept[N_DF_UPDATES], "r_nd": r,
+          f"r_{N_CHILD_UPDATES}": kept[N_CHILD_UPDATES],
           "ref": ref, "mem": mem3, "df_ms": walls,
           "syncs": [x.host_syncs for x in df]}
-    tier_launches, pool_bytes = _tiered_phase(bsk, hg, batches, nd_batch, p3,
-                                              smi)
+    tier_launches, pool_bytes, tier_ms = _tiered_phase(
+        bsk, hg, batches, nd_batch, p3, smi)
     torch.cuda.empty_cache()
 
     # -- phase 11: the tiered push path, after phase 10's sessions closed ---
     tpush_launches = _tiered_push_phase(bsk, hg, batches, nd_batch,
                                         pool_bytes // 2, p3, p6, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 12: integrity, after phase 11's sessions closed --------------
+    integ_launches = _integrity_phase(bsk, hg, batches, nd_batch, p3,
+                                      pool_bytes // 2, tier_ms, smi)
+    torch.cuda.empty_cache()
     for row in table:
-        row["launches"] = (launches[row["name"]] + push_launches[row["name"]]
-                           + var_launches[row["name"]]
-                           + blk_launches[row["name"]]
-                           + dur_launches[row["name"]]
-                           + tier_launches[row["name"]]
-                           + tpush_launches[row["name"]])
+        row["launches"] = sum(
+            path[row["name"]] for path in (
+                launches, push_launches, var_launches, blk_launches,
+                dur_launches, tier_launches, tpush_launches,
+                integ_launches))
     table.append(sweep_row)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

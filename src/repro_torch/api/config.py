@@ -12,10 +12,15 @@ checks come before those refusals, so a config the reference refuses for
 good gets the reference's ``ValueError``.
 ``fault_domain=`` takes a
 :class:`~repro_torch.core.fault_domain.ThreadFaultDomain` (the same as
-``faults=`` its plan).  The process domain comes from ``durability="wal"``
-with a session's ``store_dir=``; a ``ProcessFaultDomain`` given as
-``fault_domain=`` gets the reference's ``ValueError``.  The shard and
-corruption domains are later slices.
+``faults=`` its plan) or a
+:class:`~repro_torch.core.fault_domain.CorruptionFaultDomain` (the pallas
+engine's), and any other domain the resolved engine declares, as the
+reference does.  The process domain comes from ``durability="wal"`` with a
+session's ``store_dir=``; a ``ProcessFaultDomain`` given as
+``fault_domain=`` gets the reference's ``ValueError``.  A domain named
+``"shard"`` is a later slice (A 14).  ``integrity=`` takes an
+:class:`~repro_torch.core.integrity.IntegrityConfig` or its kwargs dict
+(the form a store's meta round-trips) and is coerced to the former.
 
 Two fields mean less here than in the reference:
 
@@ -49,9 +54,7 @@ _LATER = {
     "engine:walk": "A 13 (walk engine / PPR)",
     "engine:distributed": "A 14 (sharded topology)",
     "topology:sharded": "A 14 (sharded topology)",
-    "fault_domain": "A 11 (integrity and the corruption domain) or A 14 "
-                    "(sharded topology and the shard domain)",
-    "integrity": "A 11 (integrity and chaos)",
+    "fault_domain": "A 14 (sharded topology and the shard domain)",
     "walk": "A 13 (walk engine / PPR)",
 }
 
@@ -61,7 +64,7 @@ def _later(what: str, key: str) -> NotImplementedError:
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
         "the port runs the single-device session (pallas engine with the "
         "pull or push driver, tiered or not; blocked and dense engines; the "
-        "thread and process fault domains)")
+        "thread, process and corruption fault domains; integrity=)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +121,12 @@ class EngineConfig:
                 "faults must be a FaultPlan (needs .device_tables())")
         if self.dtype is not None:
             as_torch_dtype(self.dtype)
+        if self.integrity is not None:
+            # the kwargs-dict form (what a store's meta round-trips through
+            # restore()) is coerced in place, as the reference does
+            from repro_torch.core.integrity import IntegrityConfig
+            object.__setattr__(self, "integrity",
+                               IntegrityConfig.coerce(self.integrity))
         # -- engine / backend -------------------------------------------------
         if self.backend is not None:
             raise ValueError(
@@ -199,20 +208,19 @@ class EngineConfig:
         # later-slice refusals, so a thread domain on a sharded topology
         # gets the reference's ValueError
         if self.fault_domain is not None:
-            from repro_torch.core.fault_domain import (FaultDomain,
-                                                       ThreadFaultDomain)
+            from repro_torch.core.fault_domain import FaultDomain
             if not isinstance(self.fault_domain, FaultDomain):
                 raise ValueError(
                     "fault_domain must be a repro_torch.core.fault_domain."
-                    "FaultDomain (ThreadFaultDomain), got "
-                    f"{type(self.fault_domain).__name__}")
+                    "FaultDomain (ThreadFaultDomain / CorruptionFaultDomain)"
+                    f", got {type(self.fault_domain).__name__}")
             if self.faults is not None:
                 raise ValueError(
                     "faults= and fault_domain= are mutually exclusive — "
                     "faults=plan is shorthand for "
                     "fault_domain=ThreadFaultDomain(plan)")
             self.fault_domain.validate_for(topology=self.topology)
-            if not isinstance(self.fault_domain, ThreadFaultDomain):
+            if self.fault_domain.name == "shard":
                 kind = type(self.fault_domain).__name__
                 raise _later(f"fault_domain={kind}", "fault_domain")
             eng = registry.resolve(eng_name)
@@ -230,8 +238,6 @@ class EngineConfig:
         if int(self.checkpoint_interval) <= 0:
             raise ValueError(f"checkpoint_interval={self.checkpoint_interval}"
                              " must be > 0")
-        if self.integrity is not None:
-            raise _later("integrity=", "integrity")
         # -- walk-engine / personalization axis -------------------------------
         for name, lo in (("walks_per_vertex", 1), ("walk_length", 2),
                          ("walk_seed", 0)):

@@ -121,8 +121,10 @@ def resolve(name: Optional[str] = None) -> Engine:
 def fault_domains_of(engine: Engine) -> Tuple[str, ...]:
     """Fault domains an engine can host (a ``fault_domains`` class
     attribute; adapters predating it default to thread+process).  The
-    port's builtin engines declare ``("thread", "process")``; the pallas
-    engine's ``"corruption"`` comes with ROADMAP item A 11."""
+    blocked and dense engines declare ``("thread", "process")``, the pallas
+    engine adds ``"corruption"`` (silent damage to its stream state,
+    repaired by ``PageRankSession.verify``).  ``EngineConfig`` checks a
+    ``fault_domain=`` against it."""
     return tuple(getattr(engine, "fault_domains", ("thread", "process")))
 
 

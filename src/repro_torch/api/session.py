@@ -10,8 +10,11 @@ included: ``_seed_affected``, ``_apply_operand_delta``, ``_admit``,
 ``_seed_push``, ``_update_stream``, ``_update_snapshot``, ``update`` (all
 four variants), ``recompute`` (``static``/``nd``, and the ``df``/``dt``
 replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
-``close`` and ``report``, and the durability of the process fault domain:
-``save``, ``restore``, ``fork`` and ``device_footprint``::
+``close`` and ``report``, the durability of the process fault domain
+(``save``, ``restore``, ``fork`` and ``device_footprint``) and the
+corruption fault domain (``verify`` with its repair ladder,
+``inject_corruption``, the fused invariant check of every drive,
+``report().integrity``)::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -29,6 +32,11 @@ replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
         hg, config=EngineConfig(durability="wal"), store_dir="store/")
     durable.update(dels, ins)       # WAL append (fsync'd), then the step
     again = PageRankSession.restore("store/")   # checkpoint + WAL replay
+
+    checked = PageRankSession.from_graph(
+        hg, config=EngineConfig(integrity=IntegrityConfig(auto_repair=False)))
+    checked.inject_corruption("tile", seed=3)   # silent damage
+    checked.verify(repair=True)     # detect, then frontier/rebuild/restore
 
 Two modes, picked at construction:
 
@@ -81,6 +89,15 @@ re-drives until none is deferred, and a tiered push session rebuilds a
 whole residual from host truth.  ``save`` reads host truth; a restore
 starts from an empty slab, so a WAL replay re-drives along another
 residency path than the live session took, as the reference's does.
+
+Integrity (``EngineConfig(integrity=...)``, pull driver) follows the
+reference's checks and ladder over the state the card computes from: the
+sum check and the ``tile`` corruption cover the packed index the kernels
+read as well as the dense pool, a port check (``packed_index``) holds the
+index to the pool it was packed from, and the drift baseline
+``_r_verified`` is a copy whenever ``integrity=`` is set, because the port
+writes some rank vectors in place.  A tiered session's checks read host
+truth and CRC the slab.
 """
 from __future__ import annotations
 
@@ -88,7 +105,8 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import List, Optional, Sequence, Tuple, Union
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,6 +118,7 @@ from repro_torch.core import distributed as dist
 from repro_torch.core import fault_domain
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
+from repro_torch.core import integrity as ig
 from repro_torch.core import pallas_engine as pe
 from repro_torch.core import push_engine as pshe
 from repro_torch.core import tiering
@@ -199,6 +218,18 @@ def _apply_operand_delta(out_deg, rb_in, rb_out, bmat, rows, cols, vals, *,
     return out_deg, rb_in, rb_out, bmat
 
 
+def _entry_of(index: ops.PackedIndex, key: int, bi: int, bj: int) -> int:
+    """Position in ``index`` of the stored entry (``bi``, ``bj``) of tile
+    (or slab slot) ``key``."""
+    off, cnt = int(index.off[key]), int(index.cnt[key])
+    hit = ((index.row[off:off + cnt] == bi)
+           & (index.col[off:off + cnt] == bj)).nonzero()
+    if len(hit) != 1:
+        raise ValueError(f"entry ({bi}, {bj}) of tile {key} is not in the "
+                         "packed index")
+    return off + int(hit[0, 0])
+
+
 @dataclasses.dataclass
 class StreamBatchResult:
     """Outcome of one update step."""
@@ -250,6 +281,7 @@ class SessionReport:
     residual_mass_last: Optional[float] = None  # push: ‖r‖₁ at last exit
     pushed_blocks: Optional[int] = None         # push: total source blocks
     tiering: Optional[dict] = None              # HotSetManager counters
+    integrity: Optional[dict] = None            # checks, detections, rungs
 
 
 class PageRankSession:
@@ -346,6 +378,23 @@ class PageRankSession:
                     "mixing two sessions' logs would corrupt both")
             self._process_domain = fault_domain.ProcessFaultDomain(
                 self.store, checkpoint_interval=config.checkpoint_interval)
+        # -- the corruption domain (core/integrity.py) -----------------------
+        self._corruption_faults: Optional[
+            fault_domain.CorruptionFaultDomain] = None
+        if isinstance(config.fault_domain,
+                      fault_domain.CorruptionFaultDomain):
+            config.fault_domain.validate_for(topology=config.topology)
+            # each session consumes a private clone of the schedule riding
+            # the shareable frozen config
+            self._corruption_faults = config.fault_domain.clone()
+        self._integrity_checks = 0      # invariant/digest checks evaluated
+        self._corruption_detected = 0   # verify() passes that found damage
+        self._integrity_alert: Optional[dict] = None  # fused-drive detection
+        self._scatter_fault: Optional[str] = None     # pending torn scatter
+        # the last integrity-clean iterate: always a copy, never a tensor
+        # something writes in place (the drift check would read 0)
+        self._r_verified: Optional[torch.Tensor] = None
+        self._hg_digest: Optional[int] = None
         if self._stream:
             self._init_stream(r0)
         else:
@@ -399,34 +448,9 @@ class PageRankSession:
             torch.as_tensor(a, device=dev)
             for a in plan.device_tables(cfg.max_iterations))
 
-        if self._tiered:
-            # host tier: the full tile pool and slot tables stay on the
-            # host; only the hot set's packed slab is on the device, and
-            # the device matrix is its view, rebound after every admission
-            src, dst = g0.in_edges_host()
-            self.pool = tiering.HostTilePool.from_edges(
-                dst, src, g0.n_pad, g0.n_pad, block=g0.block_size, dtype=dt)
-            self.hot = tiering.HotSetManager(
-                self.pool, cfg.device_budget_bytes, device=dev)
-            aux = MatrixAux(
-                bmat=tiering.host_block_adjacency(self.pool.tile_cols,
-                                                  self.pool.mat.n_cb),
-                rb_in=g0.block_in_edges().cpu().numpy().copy(),
-                rb_out=g0.block_out_edges().cpu().numpy().copy())
-            self.inc = IncrementalPullMatrix(self.hot.view(), aux)
-        else:
-            self.inc = IncrementalPullMatrix.from_snapshot(g0, dtype=dt,
-                                                           padded=True)
         self.valid = g0.vertex_valid
-        # device-resident engine operands, patched in place per batch;
-        # copies, never views of the host twins in inc.aux
-        self._out_deg = g0.out_deg.clone()
-        self._rb_in = torch.tensor(self.inc.aux.rb_in, device=dev)
-        self._rb_out = torch.tensor(self.inc.aux.rb_out, device=dev)
-        self._bmat = torch.tensor(self.inc.aux.bmat, device=dev)
-        # host twin of the out-degree mirror, patched in O(batch): the push
-        # seed divides by the sources' degrees before and after a batch
-        self._out_deg_host = g0.out_deg.cpu().numpy().copy()
+        self._build_operands(g0)
+        self._hg_digest = self._graph_digest()
         if r0 is None and self._push:
             # cold push solve: p = 0, r = b — the invariant holds trivially
             # and the drive pushes the whole teleport mass to the fixed point
@@ -454,10 +478,47 @@ class PageRankSession:
         if r0.shape[0] < self.n_pad:        # length-n caller state
             r0 = torch.cat([r0, r0.new_zeros(self.n_pad - r0.shape[0])])
         self.R = r0[:self.n_pad]
+        self._set_baseline(self.R)          # drift baseline of the checks
         if self._push and self._residual is None:
             # caller-provided ranks: rebuild the exact residual invariant
             # before the first update seeds against it
             self._residual = self._residual_recompute(self.R)
+
+    def _build_operands(self, g0: GraphSnapshot) -> None:
+        """The stream's matrix and engine operands from a snapshot of the
+        host graph: the pull matrix with its packed index (a tiered session:
+        the host pool and an empty hot slab), the per-block host twins, the
+        device operand mirrors and the out-degree's host twin.  The session
+        opens with it and the ``rebuild`` repair rung re-derives with it."""
+        cfg, dev, dt = self.config, self.device, self._dtype
+        if self._tiered:
+            # host tier: the full tile pool and slot tables stay on the
+            # host; only the hot set's packed slab is on the device, and
+            # the device matrix is its view, rebound after every admission
+            src, dst = g0.in_edges_host()
+            self.pool = tiering.HostTilePool.from_edges(
+                dst, src, g0.n_pad, g0.n_pad, block=g0.block_size, dtype=dt)
+            self.hot = tiering.HotSetManager(
+                self.pool, cfg.device_budget_bytes, device=dev)
+            aux = MatrixAux(
+                bmat=tiering.host_block_adjacency(self.pool.tile_cols,
+                                                  self.pool.mat.n_cb),
+                rb_in=g0.block_in_edges().cpu().numpy().copy(),
+                rb_out=g0.block_out_edges().cpu().numpy().copy())
+            self.inc = IncrementalPullMatrix(self.hot.view(), aux)
+        else:
+            self.inc = IncrementalPullMatrix.from_snapshot(g0, dtype=dt,
+                                                           padded=True)
+        # device-resident engine operands, patched in place per batch;
+        # copies, never views of the host twins in inc.aux
+        self._out_deg = g0.out_deg.clone()
+        self._rb_in = torch.tensor(self.inc.aux.rb_in, device=dev)
+        self._rb_out = torch.tensor(self.inc.aux.rb_out, device=dev)
+        self._bmat = torch.tensor(self.inc.aux.bmat, device=dev)
+        # host twin of the out-degree mirror, patched in O(batch): the push
+        # seed divides by the sources' degrees before and after a batch, and
+        # the integrity check digests the device mirror against it
+        self._out_deg_host = g0.out_deg.cpu().numpy().copy()
 
     def _init_snapshot(self, g: Optional[GraphSnapshot], r0) -> None:
         cfg = self.config
@@ -500,14 +561,34 @@ class PageRankSession:
                               wall_time_s=time.perf_counter() - t0)
 
     # -- the fused solve -----------------------------------------------------
+    def _set_baseline(self, R: torch.Tensor) -> None:
+        """Adopt ``R`` as the drift baseline ``_r_verified``.  With
+        ``integrity=`` set it is a copy (8 MB at n = 1M), so no in-place
+        write to a rank vector can reach it.  Without it the main path takes
+        no copy: the drivers return a fresh iterate every drive and no path
+        writes ``self.R`` in place (the ``rank`` kind flips a copy), so a
+        ``verify()`` still finds any drift from the drive's output."""
+        self._r_verified = (R.clone() if self.config.integrity is not None
+                            else R)
+
     def _drive(self, R0, affected, *, expand: bool, full: bool = False
                ) -> Tuple[torch.Tensor, SweepStats, int]:
         """Run the fused driver over the device-resident operand mirrors;
         returns (ranks, stats, host syncs made).  ``full``: every row-block
-        is affected and stays so (see ``pallas_engine._driver``)."""
+        is affected and stays so (see ``pallas_engine._driver``).
+
+        With ``EngineConfig(integrity=…)`` the four invariants of the
+        iterate (:func:`~repro_torch.core.integrity.invariant_vec`) ride
+        every poll of the drive, so the per-drive check costs no host sync.
+        A violated invariant raises nothing here (the batch is applied); it
+        posts ``_integrity_alert`` for :meth:`update` / :meth:`verify` to
+        repair."""
         cfg = self.config
         part, alive, delay, crashed = self._fault_tables
         tiered = self._tiered
+        icfg = cfg.integrity
+        fused = (icfg is not None and icfg.fused
+                 and self._r_verified is not None)
         R, sv, syncs = pe._driver(
             self.inc.mat, R0, affected, self.valid, self._out_deg,
             self._rb_in, self._rb_out, self._bmat,
@@ -516,12 +597,37 @@ class PageRankSession:
             n=self.n, block_size=self.block_size, mode=cfg.mode,
             expand=expand, active_policy=cfg.active_policy,
             max_iterations=cfg.max_iterations, full=full,
-            rb_res=self.hot.rb_res if tiered else None, tiered=tiered)
+            rb_res=self.hot.rb_res if tiered else None, tiered=tiered,
+            R_ref=self._r_verified if fused else None)
+        def_pending = False
         if tiered:
             # the deferral indicator rode the drive's last poll
-            self._deferred_rb = sv[7:] != 0
-            sv = sv[:7]
-        return R, pe._stats_from_vec(sv), syncs
+            self._deferred_rb = sv[-self.n_rb:] != 0
+            def_pending = bool(self._deferred_rb.any())
+            sv = sv[:-self.n_rb]
+        stats = pe._stats_from_vec(sv[:7])
+        if not fused:
+            self._set_baseline(R)
+            return R, stats, syncs
+        mass_err, neg, nonfinite, _drift = (float(x) for x in sv[7:])
+        # the drift term is informational here (a drive moves ranks away
+        # from the pre-batch baseline); mass is gated on converged iterates
+        # only, and on a tiered session only once no deferred block is
+        # pending (mid-refill iterates carry those blocks' stale mass)
+        self._integrity_checks += 3
+        alert = None
+        if nonfinite > 0:
+            alert = {"check": "rank_finite", "count": int(nonfinite)}
+        elif neg > 0:
+            alert = {"check": "rank_negativity", "count": int(neg)}
+        elif (stats.converged and not def_pending
+                and mass_err > icfg.mass_tol):
+            alert = {"check": "rank_mass", "mass_error": mass_err}
+        if alert is None:
+            self._set_baseline(R)
+        else:
+            self._integrity_alert = alert
+        return R, stats, syncs
 
     # -- the tiered refill loop ----------------------------------------------
     def _admit(self, want_rb) -> None:
@@ -556,8 +662,10 @@ class PageRankSession:
         of *quiet* rounds — rounds whose max rank movement stayed at or
         below ``tau``, or at the float ulp floor when ``tau`` sits under
         machine precision (counted in ``refill_stalls``).  Each quiet-round
-        check reads one or two scalars: a host sync each."""
-        self._admit(want_rb)
+        check reads one or two scalars: a host sync each.  ``want_rb=None``
+        admits nothing before the first drive (a repair re-drive)."""
+        if want_rb is not None:
+            self._admit(want_rb)
         R, agg, syncs = self._drive(R0, affected, expand=True)
         rounds = 0
         eps = float(torch.finfo(R.dtype).eps)
@@ -631,6 +739,7 @@ class PageRankSession:
             self._deferred_rb = sv[pshe.STATS_LEN:] != 0
             sv = sv[:pshe.STATS_LEN]
         self._residual = Rr
+        self._set_baseline(P)
         stats, extras = pshe.push_stats_from_vec(sv)
         return P, stats, extras, syncs
 
@@ -797,15 +906,21 @@ class PageRankSession:
             sources = np.unique(np.concatenate([dels_eff[:, 0],
                                                 ins_eff[:, 0]]))
             deg_old_src = self._out_deg_host[sources]
+        # a pending torn-scatter corruption (scatter_drop / scatter_dup)
+        # skips or double-applies the device patch only; the host twins stay
+        # truth, which is how the mirror digests detect the tear
+        scatter_fault, self._scatter_fault = self._scatter_fault, None
         if len(rows):
             np.add.at(self._out_deg_host, cols,
                       vals.astype(self._out_deg_host.dtype))
-            _apply_operand_delta(
-                self._out_deg, self._rb_in, self._rb_out, self._bmat,
-                torch.as_tensor(rows, device=dev),
-                torch.as_tensor(cols, device=dev),
-                torch.as_tensor(vals.astype(np.int32), device=dev),
-                block=B)
+            delta = (torch.as_tensor(rows, device=dev),
+                     torch.as_tensor(cols, device=dev),
+                     torch.as_tensor(vals.astype(np.int32), device=dev))
+            for _ in range({"scatter_drop": 0,
+                            "scatter_dup": 2}.get(scatter_fault, 1)):
+                _apply_operand_delta(self._out_deg, self._rb_in,
+                                     self._rb_out, self._bmat, *delta,
+                                     block=B)
         seed = h_prev = plan = None
         if self._tiered:
             # host tier first: patch host truth and the host aux twins, and
@@ -831,6 +946,11 @@ class PageRankSession:
         self._last_batch = (np.asarray(deletions, np.int64).reshape(-1, 2),
                             np.asarray(insertions, np.int64).reshape(-1, 2))
         self.hg = self.hg.apply_batch(deletions, insertions)
+        if self.config.integrity is not None:
+            # the digest tracks every legitimate rebinding of the host graph;
+            # a change to its keys that does not pass here is what the deep
+            # check's graph_digest catches
+            self._hg_digest = self._graph_digest()
         raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
                + np.asarray(insertions).reshape(-1, 2).shape[0])
 
@@ -947,6 +1067,13 @@ class PageRankSession:
         # batch raises here, is never logged and never replays
         deletions, insertions = validate_edge_batch(deletions, insertions,
                                                     self.n)
+        # a scheduled silent corruption lands on live state BEFORE the batch,
+        # so this drive's fused invariants (or the next verify) must be what
+        # detects it
+        if self._corruption_faults is not None and not self._replaying:
+            cfault = self._corruption_faults.pop_pending()
+            if cfault is not None:
+                self._apply_corruption(cfault)
         bidx = self._batch_index + 1
         wal_undo = None
         if self.store is not None and not self._replaying:
@@ -982,6 +1109,12 @@ class PageRankSession:
         if (self._process_domain is not None and not self._replaying
                 and bidx % self._process_domain.checkpoint_interval == 0):
             self._checkpoint_now()
+        # fused detection → repair ladder, inside the same update call (the
+        # batch itself was applied; only the state needs repairing)
+        if self._integrity_alert is not None and not self._replaying:
+            icfg = self.config.integrity
+            if icfg is not None and icfg.auto_repair:
+                self.verify(repair=True, deep=False)
         return res
 
     # -- recompute -----------------------------------------------------------
@@ -1048,6 +1181,412 @@ class PageRankSession:
             mat, aux = self.inc.mat, self.inc.aux
         return self._converge(R0, affected, expand=(variant == "df"),
                               g=g_cur, mat=mat, aux=aux)
+
+    # -- the corruption fault domain (core/integrity.py) ---------------------
+    def _graph_digest(self) -> int:
+        """CRC32 of the host graph's sorted edge keys, from which its edge
+        list derives: the host-truth identity the deep check compares."""
+        return zlib.crc32(
+            np.ascontiguousarray(self.hg._keys).tobytes()) & 0xFFFFFFFF
+
+    def _integrity_cfg(self) -> ig.IntegrityConfig:
+        icfg = self.config.integrity
+        return icfg if icfg is not None else ig.IntegrityConfig()
+
+    def _integrity_check(self, icfg: ig.IntegrityConfig, *, deep: bool
+                         ) -> Tuple[List[dict], int, float, float,
+                                    Dict[str, float]]:
+        """One detection pass, NO repair: ``(failures, checks_run,
+        mass_error, drift, split_s)``.  The rank invariants always run;
+        stream mode adds the mirror digests, the tile-pool sum check, the
+        slot-table check and (untiered) the packed-index check, or (tiered)
+        the slab scrub; ``deep`` adds the host-graph digest.  The
+        packed-index check extends the sum check and is counted with it, so
+        ``checks_run`` counts as the reference's does.  ``split_s`` holds
+        the seconds of each part (``ranks``, ``digests``, ``sums``,
+        ``slot_tables``, ``hot_slab``, ``graph_digest``); each part ends in
+        a read to the host, so its time includes its device work."""
+        failures: List[dict] = []
+        checks = 0
+        split: Dict[str, float] = {}
+        t0 = time.perf_counter()
+
+        def lap(part: str) -> None:
+            nonlocal t0
+            t = time.perf_counter()
+            split[part] = t - t0
+            t0 = t
+
+        ref = self._r_verified if self._r_verified is not None else self.R
+        inv = ig.invariant_vec(self.R, ref, self.valid).cpu().numpy()
+        mass_err, neg, nonfinite, drift = (float(x) for x in inv)
+        checks += 4
+        if nonfinite > 0:
+            failures.append({"check": "rank_finite",
+                             "count": int(nonfinite)})
+        if neg > 0:
+            failures.append({"check": "rank_negativity", "count": int(neg)})
+        # a sweep-capped iterate legitimately carries residual mass <= n*tau
+        converged = (not self._history
+                     or bool(self._history[-1].stats.converged))
+        if converged and mass_err > icfg.mass_tol:
+            failures.append({"check": "rank_mass", "mass_error": mass_err})
+        # between drives the ranks equal the last verified iterate (queries
+        # never write), so any drift is corruption
+        if drift > icfg.drift_tol:
+            failures.append({"check": "rank_drift", "drift": drift})
+        lap("ranks")
+        if not self._stream:
+            return failures, checks, mass_err, drift, split
+        aux = self.inc.aux
+        mirrors = (("out_deg", self._out_deg, self._out_deg_host),
+                   ("rb_in", self._rb_in, aux.rb_in),
+                   ("rb_out", self._rb_out, aux.rb_out),
+                   ("bmat", self._bmat, aux.bmat))
+        for name, dev, host in mirrors:
+            checks += 1
+            bad = ig.compare_digests(dev, host,
+                                     chunk_bytes=icfg.scrub_chunk_bytes)
+            if bad:
+                failures.append({"check": "mirror_digest", "mirror": name,
+                                 "chunks": bad[:8]})
+        lap("digests")
+        # every stored entry is 1.0, so the live entries of row-block i sum
+        # to rb_in[i]: host truth on a tiered session (its slab is CRCed
+        # below); untiered, both copies of the matrix — the dense pool and
+        # the packed index the kernels read, whose one walk also yields
+        # the packed-index check's findings
+        checks += 1
+        mat = self.inc.mat
+        index_bad: List[dict] = []
+        if self._tiered:
+            bad_rb = np.abs(self.pool.row_sums() - aux.rb_in) > ig.COUNT_TOL
+        else:
+            index_sums, index_bad = ig.check_packed_index(mat)
+            bad_rb = ((np.abs(ig.tile_row_sums(mat) - aux.rb_in)
+                       > ig.COUNT_TOL)
+                      | (np.abs(index_sums - aux.rb_in) > ig.COUNT_TOL))
+        if bad_rb.any():
+            failures.append({"check": "tile_sums",
+                             "row_blocks": np.nonzero(bad_rb)[0][:8]
+                             .tolist()})
+        lap("sums")
+        checks += 1
+        if self._tiered:
+            failures.extend(ig.check_slot_tables(
+                self.pool.tile_cols, self.pool.mat.tile_idx, aux.bmat,
+                int(self.pool.mat.tiles.shape[0])))
+            lap("slot_tables")
+            checks += 1
+            failures.extend(self.hot.scrub())
+            lap("hot_slab")
+        else:
+            failures.extend(ig.check_slot_tables(
+                mat.tile_cols, mat.tile_idx, aux.bmat, mat.tile_capacity))
+            lap("slot_tables")
+            failures.extend(index_bad)
+        if deep and self._hg_digest is not None:
+            checks += 1
+            if self._graph_digest() != self._hg_digest:
+                failures.append({"check": "graph_digest"})
+            lap("graph_digest")
+        return failures, checks, mass_err, drift, split
+
+    def verify(self, *, repair: Optional[bool] = None,
+               deep: bool = True) -> ig.IntegrityReport:
+        """Run the corruption domain's checks on the live state and (by
+        default, per ``IntegrityConfig.auto_repair``) climb the repair
+        ladder on any failure.
+
+        Checks: the rank invariants (mass, non-negativity, finiteness, the
+        exact drift from the last verified iterate), and in stream mode the
+        chunked digests of the operand mirrors against their host twins,
+        the tile-pool sum check over the dense pool and the packed index,
+        the slot-table check and the packed-index check (a tiered session:
+        host truth and the slab scrub); ``deep=True`` adds the host-graph
+        digest.  The ladder (``"frontier"`` → ``"rebuild"`` →
+        ``"restore"``) re-marks corrupted rows into the DF frontier and
+        helps them to convergence, rebuilds the device operands from host
+        truth, or restores from the durable store; each rung re-checks,
+        escalates on failure and records a
+        ``RecoveryRecord(domain="corruption")``."""
+        self._ensure_open()
+        t0 = time.perf_counter()
+        icfg = self._integrity_cfg()
+        if repair is None:
+            repair = icfg.auto_repair
+        alert, self._integrity_alert = self._integrity_alert, None
+        failures, checks, mass_err, drift, split = self._integrity_check(
+            icfg, deep=deep)
+        self._integrity_checks += checks
+        if alert is not None and not any(f["check"] == alert["check"]
+                                         for f in failures):
+            # the fused drive flagged it even if the state has since moved
+            failures = [dict(alert, fused=True)] + failures
+        repairs: List[str] = []
+        rung_s: Dict[str, float] = {}
+        ok = not failures
+        if failures:
+            self._corruption_detected += 1
+            if repair:
+                ok, repairs, mass_err, drift, rung_s = \
+                    self._repair_corruption(failures, icfg, deep=deep)
+        if ok:
+            self._r_verified = self.R.clone()
+            # a rung's own drive may have posted an alert against the
+            # pre-repair baseline; the clean re-check supersedes it
+            self._integrity_alert = None
+        return ig.IntegrityReport(
+            ok=ok, checks_run=checks, failures=failures, repairs=repairs,
+            mass_error=mass_err, drift=drift,
+            wall_time_s=time.perf_counter() - t0, split_s=split,
+            rung_s=rung_s)
+
+    def _repair_corruption(self, failures: List[dict],
+                           icfg: ig.IntegrityConfig, *, deep: bool
+                           ) -> Tuple[bool, List[str], float, float,
+                                      Dict[str, float]]:
+        """Climb the ladder from the cheapest rung the failures allow,
+        re-checking after each rung and escalating while damage remains.
+        Returns ``(ok, rungs_applied, mass_error, drift, rung_s)``:
+        ``rung_s`` holds each applied rung's seconds alone, without the
+        re-check that its ``RecoveryRecord`` also spans."""
+        checks = {f["check"] for f in failures}
+        if "graph_digest" in checks:
+            start = "restore"       # the host truth itself is damaged
+        elif checks & {"mirror_digest", "tile_sums", "slot_tables",
+                       "hot_slab", "packed_index"}:
+            start = "rebuild"
+        else:
+            start = "frontier"
+        detected = failures[0]["check"]
+        repairs: List[str] = []
+        rung_s: Dict[str, float] = {}
+        mass_err = drift = float("nan")
+        for rung in ig.REPAIR_RUNGS[ig.REPAIR_RUNGS.index(start):]:
+            t0 = time.perf_counter()
+            applied = self._apply_repair_rung(rung, icfg)
+            if applied is None:     # the rung does not apply (no store)
+                continue
+            # the rung's last drive reads its convergence flag on the host,
+            # so its device work is done here
+            rung_s[rung] = time.perf_counter() - t0
+            desc, reconverged = applied
+            left, checks_run, mass_err, drift, _ = self._integrity_check(
+                icfg, deep=deep or rung == "restore")
+            self._integrity_checks += checks_run
+            self._recoveries.append(fault_domain.RecoveryRecord(
+                domain="corruption", batch_index=self._batch_index,
+                wall_time_s=time.perf_counter() - t0, rung=rung,
+                check=detected, description=desc))
+            repairs.append(rung)
+            # a sweep-capped repair drive is not a repair even when the
+            # checks pass: escalate until a rung reconverges
+            if not left and reconverged:
+                return True, repairs, mass_err, drift, rung_s
+        return False, repairs, mass_err, drift, rung_s
+
+    def _repair_drive(self, R0, affected, *, want_rb=None
+                      ) -> Tuple[torch.Tensor, SweepStats]:
+        """A repair rung's expanding drive: through the refill loop on a
+        tiered session, one fused drive otherwise."""
+        if self._tiered:
+            R, st, _ = self._drive_refill(R0, affected, want_rb=want_rb)
+        else:
+            R, st, _ = self._drive(R0, affected, expand=True)
+        return R, st
+
+    def _apply_repair_rung(self, rung: str, icfg: ig.IntegrityConfig
+                           ) -> Optional[Tuple[str, bool]]:
+        """Execute one ladder rung; returns ``(description, reconverged)``
+        or ``None`` when the rung does not apply to this session."""
+        if rung == "frontier":
+            # the paper's helping mechanism aimed at corruption: corrupted
+            # rows are reset to the last verified iterate and re-marked
+            # affected, and DF expansion carries the correction outward
+            ref = (self._r_verified if self._r_verified is not None
+                   else self._on_valid(1.0 / self.n))
+            bad = self.valid & (~torch.isfinite(self.R) | (self.R < 0)
+                                | ((self.R - ref).abs() > icfg.drift_tol))
+            n_bad = int(bad.sum())
+            if n_bad:
+                R0, affected = torch.where(bad, ref, self.R), bad
+            else:
+                # aggregate-only symptom (mass off, nothing localizable):
+                # fall back to the verified iterate wholesale
+                R0 = torch.where(self.valid, ref, torch.zeros_like(ref))
+                affected = self.valid
+            if self._stream:
+                self.R, st = self._repair_drive(R0, affected)
+                reconverged = bool(st.converged)
+            else:
+                self._converge(R0, affected, expand=True)
+                reconverged = True
+            return (f"{n_bad} corrupted rank(s) re-marked into the DF "
+                    "frontier and helped back to convergence", reconverged)
+        if rung == "rebuild":
+            if not self._stream:
+                return None         # nothing mirrored to rebuild
+            g = self.hg.snapshot(block_size=self.block_size,
+                                 device=self.device)
+            # drop the damaged matrix before its replacement is allocated
+            self.inc = self.pool = self.hot = None
+            self._build_operands(g)
+            self._scatter_fault = None
+            # a cold uniform restart, not a warm start: the iterate and the
+            # baseline may both have converged against the torn operands
+            R, st = self._repair_drive(
+                self._on_valid(1.0 / self.n), self.valid,
+                want_rb=np.arange(self.n_rb) if self._tiered else None)
+            self.R = R
+            return ("operand mirrors + tile pool rebuilt from host truth; "
+                    "full re-converge from the verified iterate",
+                    bool(st.converged))
+        if rung == "restore":
+            if self.store is None:
+                return None         # no durable store to fall back to
+            history, warm, queries = (self._history, self._warm_idx,
+                                      self._queries)
+            recov = self._recoveries
+            counters = (self._integrity_checks, self._corruption_detected)
+            store_dir = self.store.dir
+            fresh = type(self).restore(store_dir, device=self.device)
+            replayed = sum(r.replayed_batches for r in fresh._recoveries)
+            # adopt the restored state in place, keeping this session's
+            # identity (history, counters)
+            self.__dict__.update(fresh.__dict__)
+            self._history, self._warm_idx, self._queries = (history, warm,
+                                                            queries)
+            self._recoveries = recov + fresh._recoveries
+            self._integrity_checks, self._corruption_detected = counters
+            return (f"checkpoint+WAL restore from {store_dir!r} "
+                    f"({replayed} batch(es) replayed)", True)
+        raise ValueError(f"unknown repair rung {rung!r}")
+
+    def inject_corruption(self, kind: Union[str, "fault_domain."
+                                                 "CorruptionFault"], *,
+                          index: Optional[int] = None, seed: int = 0,
+                          defer: bool = False
+                          ) -> "fault_domain.CorruptionFault":
+        """Silently corrupt live session state (chaos harness and tests; see
+        ``fault_domain.CORRUPTION_KINDS``).  Nothing is raised or recorded:
+        detection is the integrity checks' job.  ``defer=True`` queues the
+        fault on the session's corruption domain instead, for the next
+        :meth:`update` to apply right before its batch."""
+        self._ensure_open()
+        if isinstance(kind, fault_domain.CorruptionFault):
+            fault = kind
+        else:
+            fault = fault_domain.CorruptionFault(kind=str(kind), index=index,
+                                                 seed=int(seed))
+        if defer:
+            if self._corruption_faults is None:
+                self._corruption_faults = fault_domain.CorruptionFaultDomain()
+            self._corruption_faults.inject(fault.kind, index=fault.index,
+                                           seed=fault.seed)
+        else:
+            self._apply_corruption(fault)
+        return fault
+
+    def _apply_corruption(self, fault: "fault_domain.CorruptionFault"
+                          ) -> None:
+        """Apply one fault to the live copy only — never to a twin a check
+        compares it with.  Sites and bits come from ``default_rng(seed)`` in
+        the reference's order, so both packages damage the same place."""
+        kind = fault.kind
+        rng = np.random.default_rng(fault.seed)
+        if kind in ("scatter_drop", "scatter_dup"):
+            # consumed by the next _update_stream
+            self._scatter_fault = kind
+            return
+        if kind == "rank":
+            i = (int(fault.index) if fault.index is not None
+                 else int(rng.integers(self.n)))
+            val = self.R[i].cpu().numpy()
+            R = self.R.clone()          # the live ranks only
+            R[i] = ig.flipped_float(val, ig.exponent_bit(val.dtype, rng))
+            self.R = R
+            return
+        if not self._stream:
+            raise ValueError(
+                f"corruption kind {kind!r} instruments stream-mode state "
+                "(tile pool / slot tables / operand mirrors); only 'rank' "
+                "and the scatter kinds apply elsewhere")
+        if kind == "graph":
+            keys = self.hg._keys      # hg.edges derives from the key set
+            if len(keys) == 0:
+                raise ValueError("graph corruption needs at least one edge")
+            i = (int(fault.index) if fault.index is not None
+                 else int(rng.integers(len(keys))))
+            keys[i] ^= 1              # host-truth bit flip (dst ± 1)
+            return
+        if kind == "mirror":
+            rb = (int(fault.index) if fault.index is not None
+                  else int(rng.integers(self._rb_in.shape[0])))
+            rb_in = self._rb_in.clone()
+            rb_in[rb] += 3
+            self._rb_in = rb_in
+            return
+        mat = self.inc.mat
+        tc = (self.pool.tile_cols.copy() if self._tiered
+              else mat.tile_cols.cpu().numpy())
+        occ = np.argwhere(tc >= 0)
+        if kind == "slot":
+            r, c = (occ[int(fault.index) % len(occ)]
+                    if fault.index is not None
+                    else occ[int(rng.integers(len(occ)))])
+            n_cb = int(self.inc.aux.bmat.shape[1])
+            if self._tiered:
+                # the slot tables' truth is the host tier (the structural
+                # check reads the host tables)
+                self.pool.mat.tile_cols[int(r), int(c)] = np.int32(n_cb + 5)
+            else:
+                # a new device table: the host twin tile_cols_h (which the
+                # CPU table may share memory with) stays clean
+                cols = mat.tile_cols.clone()
+                cols[int(r), int(c)] = n_cb + 5
+                self.inc.mat = dataclasses.replace(mat, tile_cols=cols)
+            return
+        # kind == "tile": flip an exponent bit of a live (1.0) entry, so the
+        # change clears the sum check's tolerance
+        if self._tiered:
+            # the resident tile's slab entry on the card; host truth stays
+            # clean, exactly the divergence the slab scrub CRCs
+            tid_tbl = self.pool.tile_idx2d
+            for rb in rng.permutation(sorted(self.hot._rb_slots)):
+                rb = int(rb)
+                slots = self.hot._rb_slots[rb]
+                tids = tid_tbl[rb][self.pool.tile_cols[rb] >= 0]
+                for tid, slot in zip(tids.tolist(), slots):
+                    t = self.pool.mat.tiles[tid]
+                    nz = np.argwhere(t != 0)
+                    if len(nz):
+                        bi, bj = (int(x) for x in
+                                  nz[int(rng.integers(len(nz)))])
+                        new = ig.flipped_float(
+                            t[bi, bj], ig.exponent_bit(t.dtype, rng))
+                        idx = self.hot._index
+                        idx.val[_entry_of(idx, slot, bi, bj)] = new
+                        return
+            raise ValueError("no resident live tile entry to corrupt")
+        tid_tbl = mat.tile_idx.cpu().numpy().reshape(tc.shape)
+        for oi in rng.permutation(len(occ)):
+            r, c = occ[oi]
+            tid = int(tid_tbl[r, c])
+            t = mat.tiles[tid].cpu().numpy()
+            nz = np.argwhere(t != 0)
+            if len(nz):
+                bi, bj = (int(x) for x in nz[int(rng.integers(len(nz)))])
+                new = ig.flipped_float(t[bi, bj],
+                                       ig.exponent_bit(t.dtype, rng))
+                # both copies: the dense pool the plain versions read and
+                # refresh_index re-packs from, and the packed entry the
+                # CUDA kernels read, so the damage is the same on either
+                # device and survives a re-pack
+                mat.tiles[tid, bi, bj] = new
+                mat.index.val[_entry_of(mat.index, tid, bi, bj)] = new
+                return
+        raise ValueError("no live tile entry to corrupt")
 
     # -- serving reads -------------------------------------------------------
     def _vertex_ids(self, vertices) -> np.ndarray:
@@ -1128,7 +1667,7 @@ class PageRankSession:
                      "_rb_out", "_bmat", "_fault_tables", "_residual",
                      "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev",
                      "store", "_process_domain", "pool", "hot",
-                     "_deferred_rb"):
+                     "_deferred_rb", "_r_verified", "_corruption_faults"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -1152,6 +1691,8 @@ class PageRankSession:
             v = getattr(self.config, f.name)
             if f.name == "dtype" and v is not None:
                 v = str(as_torch_dtype(v)).removeprefix("torch.")
+            if f.name == "integrity" and v is not None:
+                v = v.to_dict()     # coerced back by EngineConfig
             cfgd[f.name] = v
         return {"format": 1, "kind": "pagerank-session",
                 "n": int(self.hg.n), "config": cfgd}
@@ -1258,6 +1799,14 @@ class PageRankSession:
         new._process_domain = None
         new._recoveries = []
         new._replaying = False
+        # integrity: the counters are per session, a pending tear or alert
+        # stays with the parent
+        new._integrity_checks = 0
+        new._corruption_detected = 0
+        new._integrity_alert = None
+        new._scatter_fault = None
+        if self._corruption_faults is not None:
+            new._corruption_faults = fault_domain.CorruptionFaultDomain()
         for attr in ("R", "valid", "_residual", "_r_prev", "_out_deg",
                      "_rb_in", "_rb_out", "_bmat"):
             t = getattr(self, attr, None)
@@ -1318,6 +1867,21 @@ class PageRankSession:
         walls = [r.wall_time_s for r in hist]
         start = self._warm_idx if self._warm_idx is not None else 1
         dev_bytes = self._device_bytes()
+        icfg = self.config.integrity
+        integrity = None
+        if (icfg is not None or self._integrity_checks
+                or self._corruption_detected):
+            by_rung = {r: 0 for r in ig.REPAIR_RUNGS}
+            for rec in self._recoveries:
+                if rec.domain == "corruption" and rec.rung in by_rung:
+                    by_rung[rec.rung] += 1
+            integrity = {
+                "checks_run": int(self._integrity_checks),
+                "corruption_detected": int(self._corruption_detected),
+                "repairs": by_rung,
+                "scrub_interval_s": (float(icfg.scrub_interval_s)
+                                     if icfg is not None else None),
+            }
         return SessionReport(
             engine=self.engine_name, device=str(self.device),
             mode=self.config.mode, n_updates=len(hist),
@@ -1350,7 +1914,8 @@ class PageRankSession:
             pushed_blocks=(sum(r.pushed_blocks for r in hist)
                            if self._push and hist else None),
             tiering=(self.hot.stats() if self._tiered and self.hot is not None
-                     else None))
+                     else None),
+            integrity=integrity)
 
     def _device_bytes(self) -> Optional[dict]:
         """Per-component device-resident bytes (the memory audit)."""

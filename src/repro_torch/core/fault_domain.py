@@ -1,7 +1,8 @@
-"""Fault domains of the port: the thread and process domains (ports
-``DOMAINS``, ``RecoveryRecord``, ``FaultDomain``, ``ThreadFaultDomain``,
-``ProcessFaultDomain`` and ``resolve_thread_plan`` from
-``src/repro/core/fault_domain.py``).
+"""Fault domains of the port: the thread, process and corruption domains
+(ports ``DOMAINS``, ``RecoveryRecord``, ``FaultDomain``,
+``ThreadFaultDomain``, ``ProcessFaultDomain``, ``SessionFault``,
+``CORRUPTION_KINDS``, ``CorruptionFault``, ``CorruptionFaultDomain`` and
+``resolve_thread_plan`` from ``src/repro/core/fault_domain.py``).
 
 The paper's own fault model: pseudo-threads inside one sweep delay or
 crash-stop, and surviving capacity re-covers their blocks on later sweeps.
@@ -15,14 +16,20 @@ durability: a :class:`~repro_torch.ckpt.checkpoint.SessionStore` holds
 atomic rank checkpoints and a write-ahead log of the applied batches, and
 ``PageRankSession.restore`` replays the log through the normal update path.
 :class:`ProcessFaultDomain` carries the store and the checkpoint cadence.
-Every recovery appends a :class:`RecoveryRecord` that ``session.report()``
-surfaces.  The shard, session and corruption domains are not ported yet
-(ROADMAP items A 14, A 12 and A 11).
+The corruption domain is silent damage to live session state — a flipped
+bit in the ranks, the tile pool or its packed index, the slot tables or an
+operand mirror, a torn mirror scatter, a corrupted host graph.
+:class:`CorruptionFaultDomain` queues such faults for the next ``update``;
+``session.verify`` (:mod:`repro_torch.core.integrity`) detects and repairs
+them.  Every recovery appends a :class:`RecoveryRecord` that
+``session.report()`` surfaces.  :class:`SessionFault` is plain data here
+(``ChaosEvent.session_fault`` builds one); the service that consumes it and
+the session domain's heartbeat are ROADMAP item A 12, the shard domain A 14.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 from repro_torch.core.faults import FaultPlan
 
@@ -119,6 +126,96 @@ class ProcessFaultDomain(FaultDomain):
             "sessions — configure the process domain with "
             "EngineConfig(durability='wal', checkpoint_interval=…) plus "
             "store_dir= at session construction, not via fault_domain=")
+
+
+@dataclasses.dataclass(frozen=True)
+class SessionFault:
+    """One scheduled serving-slot failure: after slot ``stream`` completes
+    ``after_dispatches`` dispatches, the next dispatch hits the fault —
+    ``kind="dead"`` closes the slot's session before the update touches any
+    state, ``kind="stuck"`` stalls the worker ``stall_s`` seconds first."""
+    stream: int
+    after_dispatches: int = 0
+    kind: str = "dead"
+    stall_s: float = 0.0
+
+    def __post_init__(self):
+        if self.kind not in ("dead", "stuck"):
+            raise ValueError(f"kind={self.kind!r} invalid; expected "
+                             "'dead' or 'stuck'")
+        if self.kind == "stuck" and self.stall_s <= 0:
+            raise ValueError("kind='stuck' needs stall_s > 0")
+
+
+#: Injectable silent-corruption kinds (see ``session.inject_corruption``):
+#: ``rank``  — exponent-range bit flip in one live rank value
+#: ``tile``  — bit flip in one live entry of the pull matrix (the dense
+#:             pool and the packed index the kernels read, together)
+#: ``slot``  — bit flip in the slot tables (a tile_cols column id)
+#: ``mirror``— perturb one operand mirror (rb_in) on the device
+#: ``scatter_drop`` / ``scatter_dup`` — the NEXT update's operand-mirror
+#:             scatter is silently dropped / applied twice (torn scatter)
+#: ``graph`` — corrupt the host graph's edge keys (host truth itself), so
+#:             only the durable store can repair
+CORRUPTION_KINDS = ("rank", "tile", "slot", "mirror",
+                    "scatter_drop", "scatter_dup", "graph")
+
+
+@dataclasses.dataclass(frozen=True)
+class CorruptionFault:
+    """One scheduled silent corruption.  ``seed`` deterministically picks
+    the injection site (vertex, tile, bit); ``index`` pins it explicitly
+    instead when not None."""
+    kind: str
+    index: Optional[int] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.kind not in CORRUPTION_KINDS:
+            raise ValueError(f"kind={self.kind!r} invalid; expected one "
+                             f"of {list(CORRUPTION_KINDS)}")
+
+
+class CorruptionFaultDomain(FaultDomain):
+    """Deterministic silent-corruption injection for streaming sessions.
+    Faults queue FIFO; each ``update`` consumes at most one and applies it
+    to live state *before* the batch, so the drive's fused invariants (or
+    the next ``verify``) must detect it.  The session repairs it (the
+    integrity ladder) and logs a ``RecoveryRecord(domain="corruption")``."""
+
+    name = "corruption"
+
+    def __init__(self, faults: Optional[List[CorruptionFault]] = None):
+        self._pending: List[CorruptionFault] = list(faults or [])
+
+    def inject(self, kind: str, *, index: Optional[int] = None,
+               seed: int = 0) -> CorruptionFault:
+        f = CorruptionFault(kind=str(kind), index=index, seed=int(seed))
+        self._pending.append(f)
+        return f
+
+    def pop_pending(self) -> Optional[CorruptionFault]:
+        return self._pending.pop(0) if self._pending else None
+
+    def clone(self) -> "CorruptionFaultDomain":
+        """Independent copy of the schedule: the domain rides on a frozen,
+        shareable config, so each session consumes its own clone."""
+        return CorruptionFaultDomain(list(self._pending))
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    @property
+    def pending_faults(self) -> List[CorruptionFault]:
+        return list(self._pending)
+
+    def validate_for(self, *, topology: str) -> None:
+        if topology != "single":
+            raise ValueError(
+                "CorruptionFaultDomain instruments the single-device "
+                "streaming path (device mirrors + tile pool); sharded "
+                "sessions take ShardFaultDomain")
 
 
 def resolve_thread_plan(faults: Any, fault_domain: Any) -> Optional[Any]:

@@ -1,7 +1,8 @@
 """Fused frontier engine — the DF_LF sweep loop on the card.
 
 Ports ``src/repro/core/pallas_engine.py``: ``build_pull_matrix``,
-``_driver`` (with the tiered session's ``rb_res``/``deferred`` operands),
+``_driver`` (with the tiered session's ``rb_res``/``deferred`` operands
+and the integrity invariants of the session's fused drive),
 ``_stats_from_vec``, ``run_pallas`` and the registry adapter
 ``PallasEngine`` / ``as_engine``.
 The pull runs through the tile SpMV over compacted active row-blocks (sum
@@ -21,7 +22,10 @@ on the device exactly as the reference gates its body on ``cond``/``do``,
 so the sweeps of a chunk that run past convergence change nothing, and
 ``sweeps / iterations / blocks / edges`` equal the reference's.  A drive
 makes ``ceil(sweeps_run / SWEEPS_PER_POLL)`` host syncs (at least one); the
-driver returns that count.
+driver returns that count.  Whatever else a drive reports rides the same
+read: a tiered session's deferral indicator, and with ``R_ref`` the four
+integrity invariants of the iterate (``integrity.invariant_vec``), which
+the reference fetches in its drive's single sync.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.core import faults as flt
 from repro_torch.core import frontier as fr
+from repro_torch.core import integrity as ig
 from repro_torch.core.blocked import SweepStats
 from repro_torch.core.graph import GraphSnapshot
 from repro_torch.kernels.block_spmv import ops
@@ -56,10 +61,17 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
             delay_table, crashed_any, *, n: int, block_size: int, mode: str,
             expand: bool, active_policy: str, max_iterations: int,
             full: bool = False, rb_res: Optional[torch.Tensor] = None,
-            tiered: bool = False) -> Tuple[torch.Tensor, np.ndarray, int]:
+            tiered: bool = False, R_ref: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, np.ndarray, int]:
     """The fused loop.  Returns (ranks [n_pad], host stats vector [7],
     host syncs made).  ``alpha``/``tau``/``tau_f`` are 0-d tensors (runtime
     operands); the fault tables are tensors on the ranks' device.
+
+    ``R_ref`` (the session's last verified iterate) stacks the four
+    integrity invariants of the current iterate onto every poll's vector,
+    four reductions over ``n_pad`` a chunk: the stats vector then holds
+    ``7 + 4`` entries ahead of any tiered indicator, and the invariants are
+    those of the returned ranks.
 
     ``tiered=True`` (:mod:`repro_torch.core.tiering`): ``mat`` is the hot
     slab's view and ``rb_res`` [n_rb] marks the resident row-blocks.  A
@@ -229,6 +241,8 @@ def _driver(mat: ops.BlockSparse, R0, affected0, valid, out_deg, rb_in,
         done = converged | dnf | (it >= max_iterations)
         sv = torch.stack([sweeps, iters, blocks, edges, sim.to(cdt),
                           converged.to(cdt), dnf.to(cdt), done.to(cdt)])
+        if R_ref is not None:
+            sv = torch.cat([sv, ig.invariant_vec(R, R_ref, valid).to(cdt)])
         if tiered:
             sv = torch.cat([sv, deferred.to(cdt)])
         sv = sv.cpu().numpy()          # the poll: one sync per chunk
@@ -319,7 +333,7 @@ class PallasEngine:
     the tensors' device, so ``backend`` must be ``None``."""
 
     name = "pallas"
-    fault_domains = ("thread", "process")
+    fault_domains = ("thread", "process", "corruption")
 
     def run(self, g, R0, affected0, *, mode, expand, alpha, tau, tau_f,
             max_iterations, faults, tile, active_policy,

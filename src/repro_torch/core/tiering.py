@@ -122,6 +122,17 @@ class HostTilePool:
         return int(self.mat.tiles.nbytes + self.mat.tile_cols.nbytes
                    + self.mat.tile_idx.nbytes)
 
+    def row_sums(self) -> np.ndarray:
+        """Per-row-block sum of the live tile entries: the host-truth side
+        of the integrity check's ``tile_sums`` on a tiered session."""
+        tc = self.mat.tile_cols
+        occ_rb, occ_slot = np.nonzero(tc >= 0)
+        tid = self.tile_idx2d[occ_rb, occ_slot]
+        per_tile = self.mat.tiles.reshape(self.mat.tiles.shape[0], -1).sum(1)
+        out = np.zeros(self.n_rb, per_tile.dtype)
+        np.add.at(out, occ_rb, per_tile[tid])
+        return out
+
     def apply_delta(self, rows: np.ndarray, cols: np.ndarray,
                     values: np.ndarray) -> ops.DeltaPlan:
         """Host-tier sibling of ``ops.apply_delta``: the same plan and the
@@ -497,7 +508,9 @@ class HotSetManager:
     def scrub(self) -> List[dict]:
         """CRC each resident tile's packed slab entries against the same
         tile of the host pool, packed the same way.  Returns failure dicts
-        in the reference's ``_integrity_check`` shape; empty list = clean."""
+        in the reference's ``_integrity_check`` shape (``hot_slab``, the
+        check that sends a tiered session to the ``rebuild`` rung); empty
+        list = clean."""
         idx = self._index
         off, cnt, row, col, val = (t.cpu().numpy() for t in (
             idx.off, idx.cnt, idx.row, idx.col, idx.val))

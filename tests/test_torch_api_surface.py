@@ -28,9 +28,6 @@ UNPORTED = {
     "AdmissionRejected": "A 12", "PageRankService": "A 12",
     "ReadResult": "A 12", "ServingConfig": "A 12", "SessionFault": "A 12",
     "UpdateRequest": "A 12",
-    "ChaosEvent": "A 11", "ChaosPlan": "A 11", "CorruptionFault": "A 11",
-    "CorruptionFaultDomain": "A 11", "IntegrityConfig": "A 11",
-    "IntegrityReport": "A 11",
     "ShardFault": "A 14", "ShardFaultDomain": "A 14",
 }
 

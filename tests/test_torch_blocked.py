@@ -710,7 +710,13 @@ class TestConfigAxis:
         class ProcessLike(FaultDomain):
             name = "process"
 
-        # only ProcessFaultDomain is the process domain (and it refuses to
-        # be a fault_domain=); any other domain waits for A 11 or A 14
-        with pytest.raises(NotImplementedError, match="A 11"):
-            TConfig(fault_domain=ProcessLike())
+        class ShardLike(FaultDomain):
+            name = "shard"
+
+        # since A 11 a domain the engine declares gets the reference's
+        # outcome (it constructs); only the shard domain waits, for A 14
+        for engine in ("blocked", "pallas"):
+            cfg = TConfig(engine=engine, fault_domain=ProcessLike())
+            assert cfg.fault_domain.name == "process"
+        with pytest.raises(NotImplementedError, match="A 14"):
+            TConfig(engine="blocked", fault_domain=ShardLike())

@@ -6,8 +6,9 @@ of the kernel's undefined rows, and the variant matrix (dt, the replays,
 snapshot mode, the dense engine) on the card against the CPU, the blocked
 engine's Gauss–Seidel sweep kernel against its plain version (over the
 snapshot's CSR and over an ``EdgePager``'s slab, the paged sweep bit-equal
-to the unpaged one), and tiered pull and push sessions (the kernels
-reading the packed hot slab) against the CPU.
+to the unpaged one), tiered pull and push sessions (the kernels
+reading the packed hot slab) against the CPU, and the integrity check
+finding and healing a flipped entry of the index the kernels read.
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -826,4 +827,53 @@ def test_cuda_tiered_push_session_matches_cpu(cuda_device):
     assert np.abs(gs.ranks - cs.ranks).max() <= 1e-12
     host = residual_from_host(gs.hg, gs._out_deg_host, gs.ranks, 0.85)
     assert np.abs(gs._residual.cpu().numpy() - host).max() <= 1e-12
+    gs.close(), cs.close()
+
+
+@pytest.mark.cuda
+def test_cuda_session_detects_and_heals_a_tile_flip(cuda_device):
+    """A session on the card with ``integrity=``: the ``tile`` kind flips an
+    entry of the packed index the kernels read (and of the dense pool);
+    ``verify`` finds it through the index's row-block sums, the ``rebuild``
+    rung re-converges through kernel #2 on the card, and the state ends
+    clean and equal to the same session on the CPU after the same repair.
+    A damaged index alone (the pool left as it was) is caught too."""
+    from repro_torch.api import EngineConfig, IntegrityConfig, PageRankSession
+    from repro_torch.core import integrity as ig
+    from repro_torch.graphs.generators import grid_road
+    hg = grid_road(32, seed=7)
+    cfg = EngineConfig(block_size=64, tau=1e-10,
+                       integrity=IntegrityConfig(auto_repair=False))
+    rng = np.random.default_rng(12)
+    batch = (np.zeros((0, 2), np.int64), rng.integers(0, hg.n, (16, 2)))
+    out = []
+    for dev in (cuda_device, "cpu"):
+        sess = PageRankSession.from_graph(hg, config=cfg, device=dev)
+        sess.update(*batch)
+        assert sess.verify(repair=False).ok
+        sess.inject_corruption("tile", seed=3)
+        mat = sess.inc.mat
+        bad = np.abs(ig.check_packed_index(mat)[0] - sess.inc.aux.rb_in)
+        assert (bad > ig.COUNT_TOL).sum() == 1
+        launches = bsk.block_spmv_active_cuda.launches
+        rep = sess.verify(repair=True)
+        assert [f["check"] for f in rep.failures] == ["tile_sums"]
+        assert rep.ok and rep.repairs == ["rebuild"]
+        if dev != "cpu":
+            assert bsk.block_spmv_active_cuda.launches > launches
+        assert sess.verify(repair=False).ok
+        out.append((sess, rep))
+    (gs, grep_), (cs, crep) = out
+    assert grep_.failures == crep.failures
+    assert np.abs(gs.ranks - cs.ranks).max() <= 1e-12
+    assert gs.report().integrity == cs.report().integrity
+    # the index alone: one value flipped where no plain version reads
+    idx = gs.inc.mat.index
+    e = int(idx.off[3]) + 1
+    idx.val[e] = 0.5
+    rep = gs.verify(repair=True)
+    assert {f["check"] for f in rep.failures} == {"tile_sums",
+                                                  "packed_index"}
+    assert rep.ok and rep.repairs == ["rebuild"]
+    assert np.abs(gs.ranks - cs.ranks).max() <= 1e-12
     gs.close(), cs.close()

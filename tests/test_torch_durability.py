@@ -34,6 +34,7 @@ import torch
 from repro.api import EngineConfig as JConfig
 from repro.api import PageRankSession as JSession
 from repro.api import SessionStore as JStore
+from repro.api import registry as jregistry
 from repro.core import fault_domain as jfd
 from repro.core import pagerank as jpr
 from repro.core.delta import random_batch
@@ -139,8 +140,12 @@ class TestConfigAxis:
 
     @pytest.mark.parametrize("name", ["blocked", "dense", "pallas"])
     def test_engines_declare_thread_and_process(self, name):
+        # every engine hosts the thread and process domains; since A 11 the
+        # pallas engine also the corruption domain, as the reference's does
         eng = registry.resolve(name)
-        assert registry.fault_domains_of(eng) == ("thread", "process")
+        assert registry.fault_domains_of(eng)[:2] == ("thread", "process")
+        assert registry.fault_domains_of(eng) == \
+            jregistry.fault_domains_of(jregistry.resolve(name))
         assert tfd.DOMAINS == jfd.DOMAINS
 
     def test_process_domain_validation(self, tmp_path):
@@ -155,8 +160,18 @@ class TestConfigAxis:
         class CorruptionLike(tfd.FaultDomain):
             name = "corruption"
 
-        with pytest.raises(NotImplementedError, match="A 11"):
-            TConfig(fault_domain=CorruptionLike())
+        class ShardLike(tfd.FaultDomain):
+            name = "shard"
+
+        # the corruption domain is ported (A 11): the pallas engine hosts
+        # it, the blocked engine refuses it with the reference's ValueError;
+        # only the shard domain still names a later item
+        assert TConfig(fault_domain=CorruptionLike()).fault_domain.name == \
+            "corruption"
+        with pytest.raises(ValueError, match="does not host"):
+            TConfig(engine="blocked", fault_domain=CorruptionLike())
+        with pytest.raises(NotImplementedError, match="A 14"):
+            TConfig(fault_domain=ShardLike())
 
     def test_recovery_record_matches_reference(self):
         kw = dict(domain="process", batch_index=3, wall_time_s=0.25,

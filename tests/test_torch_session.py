@@ -17,6 +17,7 @@ from repro.api import PageRankSession as JSession
 from repro.api.session import _seed_affected as j_seed_affected
 from repro.core import delta as jdelta
 from repro.core import frontier as jfr
+from repro.core.fault_domain import FaultDomain as JFaultDomain
 from repro.graphs import generators as jgen
 from repro_torch.api import session as tsession
 from repro_torch.api.config import EngineConfig as TConfig
@@ -174,8 +175,13 @@ def test_session_from_numpy_round_trips():
 
 class _ProcessDomain(FaultDomain):
     """A fault domain other than the thread domain that is not the port's
-    ProcessFaultDomain (the corruption and shard domains are ROADMAP items
-    A 11 and A 14)."""
+    ProcessFaultDomain; since A 11 it gets the reference's outcome (the
+    engine declares "process": it constructs)."""
+    name = "process"
+
+
+class _JProcessDomain(JFaultDomain):
+    """The reference package's twin of :class:`_ProcessDomain`."""
     name = "process"
 
 
@@ -191,8 +197,9 @@ class _ProcessDomain(FaultDomain):
     # A 10b
     ({"durability": "wal", "driver": "push", "device_budget_bytes": 1 << 20},
      None),
-    ({"integrity": {"mass_tol": 1e-6}}, "A 11"),
-    ({"fault_domain": _ProcessDomain()}, "A 11"),
+    # integrity= and any fault domain an engine declares run since A 11
+    ({"integrity": {"mass_tol": 1e-6}}, None),
+    ({"fault_domain": _ProcessDomain()}, None),
     # the blocked engine and the dense engine's LF mode run since A 7; the
     # later axes still refuse on them
     # a budget on the blocked engine gets the reference's ValueError
@@ -200,7 +207,7 @@ class _ProcessDomain(FaultDomain):
     # constructs a tiered push stream
     ({"engine": "pallas", "driver": "push", "device_budget_bytes": 1 << 20},
      None),
-    ({"engine": "dense", "fault_domain": _ProcessDomain()}, "A 11"),
+    ({"engine": "dense", "fault_domain": _ProcessDomain()}, None),
     ({"engine": "walk"}, "A 13"),
     ({"engine": "distributed"}, "A 14"),
 ])
@@ -209,10 +216,15 @@ def test_out_of_slice_config_raises(kw, item):
         # ported: the config constructs, as the reference's does (whose
         # default engine off the TPU is "blocked": name the pallas engine)
         cfg = TConfig(**kw)
-        assert JConfig(**{"engine": "pallas", **kw}).device_budget_bytes \
-            == cfg.device_budget_bytes
-        assert (cfg.driver, cfg.durability) == (
-            kw["driver"], kw.get("durability", "none"))
+        jkw = {k: _JProcessDomain() if isinstance(v, _ProcessDomain) else v
+               for k, v in kw.items()}
+        jcfg = JConfig(**{"engine": "pallas", **jkw})
+        for f in ("device_budget_bytes", "driver", "durability"):
+            assert getattr(cfg, f) == getattr(jcfg, f), f
+        assert (cfg.integrity is None) == (jcfg.integrity is None)
+        if cfg.integrity is not None:
+            assert cfg.integrity.to_dict() == jcfg.integrity.to_dict()
+        assert (cfg.fault_domain is None) == (jcfg.fault_domain is None)
         return
     with pytest.raises(NotImplementedError, match=item):
         TConfig(**kw)

@@ -20,6 +20,7 @@ import torch
 
 from repro.api import EngineConfig as JConfig
 from repro.api import PageRankSession as JSession
+from repro.api import registry as jregistry
 from repro.core import delta as jdelta
 from repro.core import frontier as jfr
 from repro.core import pagerank as jpr
@@ -166,7 +167,12 @@ class TestRegistry:
         for name in ("blocked", "dense", "pallas"):
             eng = registry.resolve(name)
             assert registry.supports_of(eng) == frozenset()
-            assert registry.fault_domains_of(eng) == ("thread", "process")
+            # the reference's declarations: since A 11 the pallas engine
+            # also hosts the corruption domain
+            assert registry.fault_domains_of(eng) == \
+                jregistry.fault_domains_of(jregistry.resolve(name))
+            assert registry.fault_domains_of(eng)[:2] == ("thread",
+                                                          "process")
             registry.reject_personalization(eng, {"walk_seed": None})
             with pytest.raises(registry.CapabilityError, match="ppr"):
                 registry.reject_personalization(eng, {"walk_seed": 3})
