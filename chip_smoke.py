@@ -145,13 +145,29 @@ Phases, each of which raises (non-zero exit) on any failed check:
    auto-repairing session (printed whether it flagged) and must end
    clean; phase 10's half-budget tiered session, kept open, verifies clean
    (timed, its slab scrub apart) and heals a ``rank`` flip at
-   ``frontier``.
+   ``frontier``;
+13. serving (``PageRankService``) after phase 12, with the launch counters
+   zeroed just before and read at the end: a lone session streams phase
+   3's 8 ``df`` batches and 8 more (its ranks after 8 must equal phase 3's
+   bit for bit), then its read view and a ``fork()`` are timed; a
+   synchronous service over a durable slot and an ``integrity=`` slot
+   (its card memory beside two sessions') streams the 8 batches with
+   ``coalesce=False`` (both slots bit-equal to the lone run, no request
+   error, no retry, no dead slot), scrubs a ``rank`` flip at ``frontier``
+   and runs one background scrub; a background service over two fresh
+   slots on their own CUDA streams (a durable one killed after 3
+   dispatches and failed over by the watchdog, a plain one) streams all
+   16 batches per slot while 3 reader threads read (both slots end
+   bit-equal to the lone run, every read bit-equal to the lone run at its
+   view's batch index, every staleness within the budget); idle reads are
+   timed; a service opened from the host graph folds phase 3's 9 batches
+   into one coalesced dispatch, within 1e-8 of phase 3's oracle.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
 path's (phase 8), the durable path's (phase 9), the tiered path's
-(phase 10), the tiered push path's (phase 11) and the integrity path's
-(phase 12).  Prints the
+(phase 10), the tiered push path's (phase 11), the integrity path's
+(phase 12) and the serving path's (phase 13).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -2437,6 +2453,355 @@ def _integrity_phase(bsk, hg, batches, nd_batch, p3: dict, budget: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: serving — PageRankService on per-slot streams
+# ---------------------------------------------------------------------------
+
+N_MORE = 8                       # phase 13: batches past phase 3's df run
+STALENESS_BUDGET_S = 1.0         # phase 13: the background run's budget
+SCRUB_INTERVAL_S = 3.0           # phase 13: > a verify() at n = 1M (~1.8 s)
+N_READERS = 3
+
+
+def _top10(r: np.ndarray, n: int) -> tuple:
+    """``top_k(10)`` of host ranks with the port's tie order (a stable
+    descending sort: lower id first)."""
+    ids = np.argsort(-r[:n], kind="stable")[:10]
+    return r[ids], ids
+
+
+def _serving_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
+    """Phase 13: ``PageRankService`` on phase 3's graph and batches.  A lone
+    session takes phase 3's 8 ``df`` batches and ``N_MORE`` more (its ranks
+    at every batch index kept on the host; after 8 they must equal phase
+    3's bit for bit); then its read view and a ``fork()`` are timed.  A
+    synchronous service over a durable slot and an ``integrity=`` slot
+    streams the 8 batches (``coalesce=False``; both bit-equal to the lone
+    run, no error, retry or dead slot), adds no more card memory than its
+    two read views, scrubs a ``rank`` flip at ``frontier`` and runs a brief
+    background scrub.  A background service over two fresh slots (a
+    durable one killed after 3 dispatches, failed over by the watchdog, and
+    a plain one) streams all 16 batches per slot while reader threads read;
+    both end bit-equal to the lone run, every read bit-equal to the lone
+    run at its view's batch index, every staleness within the budget.  A
+    service opened from the host graph folds phase 3's 9 batches into one
+    coalesced dispatch, within 1e-8 of phase 3's oracle.  Returns the
+    phase's launch counts."""
+    from repro_torch.api import (EngineConfig, IntegrityConfig,
+                                 PageRankService, PageRankSession,
+                                 ServingConfig)
+    from repro_torch.core.delta import random_batch
+
+    t_phase = time.perf_counter()
+    n = hg.n
+    cfg = EngineConfig(block_size=BLOCK, dtype=torch.float64, tau=TAU)
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+
+    # -- the lone run: the ranks at every batch index ----------------------
+    lone = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    lone.warmup()
+    stream_batches, at = [], [lone.ranks]
+    for i in range(N_DF_UPDATES + N_MORE):
+        if i < N_DF_UPDATES:
+            dels, ins = batches[i]
+        else:
+            dels, ins = random_batch(lone.hg, 1e-4, seed=300 + i,
+                                     deletions_frac=0.2)
+        stream_batches.append((dels, ins))
+        res = lone.update(dels, ins, variant="df")
+        _check(res.converged, f"lone update {i} did not converge")
+        at.append(lone.ranks)
+    _check(bool(np.array_equal(at[N_DF_UPDATES], p3["r_df"])),
+           "the lone run differs from phase 3 after its df updates")
+    last = len(stream_batches)
+
+    # -- the read view against a fork of the same session ------------------
+    reps = 20
+    views, walls, dev_ms = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        view = lone._read_view()
+        e1.record()
+        e1.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        views.append(view)
+    view_bytes = views[0].nbytes
+    del views
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fork = lone.fork()
+    torch.cuda.synchronize()
+    fork_ms = (time.perf_counter() - t0) * 1e3
+    fork_gb = (torch.cuda.memory_allocated() - m0) / 1e9
+    fork.close()
+    del fork
+    lone.close()
+    del lone
+    torch.cuda.empty_cache()
+    print(f"read view refresh: {view_bytes} bytes ({view_bytes / 1e6:.3f} "
+          f"MB), device {np.median(dev_ms):.4f}"
+          f" ms (median of {reps}), host {np.median(walls):.4f} ms; one "
+          f"fork(): {fork_ms:.2f} ms, +{fork_gb:.3f} GB [{smi}]",
+          flush=True)
+    _check(view_bytes == at[0].nbytes + at[0].shape[0],
+           f"the read view holds {view_bytes} bytes, not R + valid")
+
+    # -- synchronous service: a durable slot and an integrity= slot --------
+    shutil.rmtree(STORE_ROOT / "serving", ignore_errors=True)
+    torch.cuda.synchronize()
+    m_base = torch.cuda.memory_allocated()
+    icfg = IntegrityConfig(mass_tol=n * TAU, auto_repair=False,
+                           scrub_interval_s=SCRUB_INTERVAL_S)
+    durable = PageRankSession.from_graph(
+        hg, config=cfg.replace(durability="wal"), device="cuda",
+        store_dir=str(STORE_ROOT / "serving" / "sync"))
+    checked = PageRankSession.from_graph(
+        hg, config=cfg.replace(integrity=icfg), device="cuda")
+    durable.warmup()
+    checked.warmup()
+    torch.cuda.synchronize()
+    m_sessions = torch.cuda.memory_allocated()
+    svc = PageRankService([durable, checked], warmup=False,
+                          serving=ServingConfig(coalesce=False, scrub=True))
+    torch.cuda.synchronize()
+    m_service = torch.cuda.memory_allocated()
+    print(f"serving memory: two sessions "
+          f"{(m_sessions - m_base) / 1e9:.3f} GB (phase 3's one session x "
+          f"2: {2 * p3['mem'] / 1e9:.3f} GB); the "
+          f"service adds {(m_service - m_sessions) / 1e6:.3f} MB (2 read "
+          f"views of {view_bytes / 1e6:.3f} MB) [{smi}]", flush=True)
+    _check(m_service - m_sessions <= 2 * view_bytes + (1 << 20),
+           f"the service added {m_service - m_sessions} bytes, more than its "
+           "two read views")
+    t0 = time.perf_counter()
+    for dels, ins in batches:
+        for slot in range(2):
+            svc.submit(slot, dels, ins)
+    svc.run_until_drained()
+    t_sync = time.perf_counter() - t0
+    rep = svc.report()
+    print(f"synchronous service: {rep['requests_done']} requests in "
+          f"{t_sync:.2f} s; request p50 {rep['request_p50_ms']} ms, p95 "
+          f"{rep['request_p95_ms']} ms; per-slot df p50 "
+          f"{[row['p50_ms'] for row in rep['sessions']]} ms [{smi}]",
+          flush=True)
+    _check(rep["requests_done"] == 2 * N_DF_UPDATES and rep["retries"] == 0
+           and not svc._dead, f"synchronous service: {rep['requests_done']}"
+           f" done, {rep['retries']} retries, dead {svc._dead}")
+    _check(not any(r.error for r in svc.finished), "a synchronous request "
+           "carries an error")
+    for slot in range(2):
+        _check(bool(np.array_equal(svc.sessions[slot].ranks,
+                                   at[N_DF_UPDATES])),
+               f"synchronous slot {slot} differs from phase 3")
+    _check(all(row["retraces_post_warmup"] == 0 for row in rep["sessions"]),
+           "a kernel was built during the synchronous run")
+
+    # -- the scrubber: a rank flip found at frontier -----------------------
+    before = svc.sessions[1].ranks
+    svc.sessions[1].inject_corruption("rank", seed=5)
+    t0 = time.perf_counter()
+    srep = svc.scrub(1, repair=True)[1]
+    t_scrub = time.perf_counter() - t0
+    err = _linf(svc.sessions[1].ranks, before, n)
+    served = np.asarray(svc.query(1, np.arange(8)))
+    print(f"scrub(repair=True): {[f['check'] for f in srep.failures]} -> "
+          f"{srep.repairs} in {t_scrub:.3f} s (verify {srep.wall_time_s:.3f}"
+          f" s), L_inf {err:.3e} to the ranks before [{smi}]", flush=True)
+    _check(srep.ok and srep.repairs == ["frontier"],
+           f"the rank flip was not healed at frontier: {srep.repairs}")
+    _check(err <= 1e-8, f"ranks after the scrub off: {err}")
+    _check(bool(np.array_equal(served, svc.sessions[1].ranks[:8])),
+           "the read view was not refreshed after the repair")
+    scrubs0 = svc.report()["integrity"]["scrubs_run"]
+    t0 = time.perf_counter()
+    svc.start()
+    try:
+        while (svc.report()["integrity"]["scrubs_run"] < scrubs0 + 1
+               and time.perf_counter() - t0 < 60):
+            time.sleep(0.1)
+    finally:
+        svc.stop()
+    integ = svc.report()["integrity"]
+    print(f"background scrub (interval {SCRUB_INTERVAL_S} s): "
+          f"{integ['scrubs_run'] - scrubs0} pass(es) in "
+          f"{time.perf_counter() - t0:.2f} s; integrity {integ} [{smi}]",
+          flush=True)
+    _check(integ["scrubs_run"] > scrubs0 and integ["corruption_detected"]
+           == 1, f"the background scrubber: {integ}")
+    for slot in range(2):
+        svc.sessions[slot].close()
+    del svc, durable, checked
+    torch.cuda.empty_cache()
+
+    # -- background: two fresh slots, a watchdog failover, reader threads --
+    durable = PageRankSession.from_graph(
+        hg, config=cfg.replace(durability="wal"), device="cuda",
+        store_dir=str(STORE_ROOT / "serving" / "background"))
+    plain = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    svc = PageRankService(
+        [durable, plain],
+        serving=ServingConfig(coalesce=False,
+                              staleness_budget_s=STALENESS_BUDGET_S))
+    _check(len({svc._streams[0], svc._streams[1],
+                torch.cuda.current_stream()}) == 3,
+           "the slots do not own streams of their own")
+    svc.inject_session_fault(0, after_dispatches=3, kind="dead")
+    rng = np.random.default_rng(13)
+    qids = np.unique(np.concatenate([np.argsort(-at[0][:n])[:16],
+                                     rng.integers(0, n, 48)]))
+    got, errors, stop = [], [], threading.Event()
+
+    def reader(k: int) -> None:
+        r = np.random.default_rng(100 + k)
+        try:
+            while not stop.is_set():
+                slot, box = int(r.integers(2)), {}
+                if r.random() < 0.5:
+                    def op(v):
+                        box["bi"] = v.batch_index
+                        return v.query(qids), None
+                else:
+                    def op(v):
+                        box["bi"] = v.batch_index
+                        return tuple(v.top_k(10))
+                res = svc._read(slot, op)
+                got.append((slot, box["bi"], res))
+                time.sleep(0.002)
+        except Exception as e:      # reported by the check below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=reader, args=(k,))
+               for k in range(N_READERS)]
+    t0 = time.perf_counter()
+    svc.start()
+    for t in threads:
+        t.start()
+    try:
+        for dels, ins in stream_batches:
+            for slot in range(2):
+                svc.submit(slot, dels, ins)
+        svc.run_until_drained()
+    finally:
+        svc.stop()
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    t_bg = time.perf_counter() - t0
+    rep = svc.report()
+    q = rep["queries"]
+    print(f"background service ({N_READERS} reader threads, per-slot "
+          f"streams): {rep['requests_done']} requests in {t_bg:.2f} s; "
+          f"request p50 {rep['request_p50_ms']} ms, p95 "
+          f"{rep['request_p95_ms']} ms; queue wait p50 "
+          f"{rep['queue_wait_p50_ms']} ms, p95 {rep['queue_wait_p95_ms']} "
+          f"ms; exec p50 {rep['exec_p50_ms']} ms [{smi}]", flush=True)
+    print(f"reads: {q['served']} served, p50 {q['p50_ms']} ms, p95 "
+          f"{q['p95_ms']} ms; staleness p95 {q['staleness_p95_s']} s, max "
+          f"{q['staleness_max_s']} s (budget {STALENESS_BUDGET_S} s), lag "
+          f"max {q['lag_updates_max']}; snapshot_refreshes "
+          f"{q['snapshot_refreshes']} [{smi}]", flush=True)
+    print(f"per-slot df p50 in background "
+          f"{[row['p50_ms'] for row in rep['sessions']]} ms beside phase "
+          f"3's {np.percentile(p3['df_ms'], 50):.2f} ms [{smi}]", flush=True)
+    wd = rep["watchdog"]
+    fo = rep["failovers"]
+    if fo and wd:
+        print(f"failover: recovery_time_s {fo[0]['recovery_time_s']}, "
+              f"replayed_batches {fo[0]['replayed_batches']}, "
+              f"drained_requests {wd[0]['drained_requests']}, restored at "
+              f"batch {fo[0]['restored_batch_index']}; watchdog event "
+              f"wall {wd[0]['wall_time_s']:.3f} s [{smi}]", flush=True)
+    _check(not errors, f"a reader failed: {errors[:3]}")
+    _check(len(fo) == 1 and len(wd) == 1 and wd[0]["kind"] == "dead",
+           f"expected one watchdog failover of slot 0: {fo}, {wd}")
+    _check(rep["requests_done"] == 2 * last and rep["retries"] == 0
+           and not svc._dead, f"background service: "
+           f"{rep['requests_done']} done, {rep['retries']} retries, dead "
+           f"{svc._dead}")
+    erred = [r for r in svc.finished if r.error]
+    _check(len(erred) == 1 and erred[0].stream == 0
+           and "closed" in erred[0].error,
+           f"errors beyond the killed dispatch: "
+           f"{[(r.stream, r.error) for r in erred]}")
+    for slot in range(2):
+        _check(bool(np.array_equal(svc.sessions[slot].ranks, at[last])),
+               f"background slot {slot} differs from the lone run")
+    tops = {}
+    for slot, bi, res in got:
+        if res.vertices is None:
+            ok = np.array_equal(res.values, at[bi][qids])
+        else:
+            if bi not in tops:
+                tops[bi] = _top10(at[bi], n)
+            ok = (np.array_equal(res.values, tops[bi][0])
+                  and np.array_equal(res.vertices, tops[bi][1]))
+        _check(ok, f"a read of slot {slot} differs from the lone run at "
+               f"its view's batch index {bi}")
+        _check(res.staleness_s <= STALENESS_BUDGET_S,
+               f"a read was {res.staleness_s} s stale")
+    _check(len(got) > 0, "no read was served")
+    print(f"reads checked: {len(got)}, bit-equal to the lone run at "
+          f"{len({bi for _, bi, _ in got})} distinct batch indices",
+          flush=True)
+    # -- reads of the idle service, one at a time ---------------------------
+    few = qids[:4]
+
+    def median_ms(fn, k: int) -> float:
+        walls = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    q_ms = median_ms(lambda: svc.query(1, few), 50)
+    k_ms = median_ms(lambda: svc.top_k(1, 10), 20)
+    print(f"idle reads (host wall, median): query of {len(few)} ids "
+          f"{q_ms:.4f} ms, top_k(10) {k_ms:.4f} ms [{smi}]", flush=True)
+    for slot in range(2):
+        svc.sessions[slot].close()
+    del svc, durable, plain
+    torch.cuda.empty_cache()
+
+    # -- coalescing: phase 3's 9 batches folded into one dispatch ----------
+    svc = PageRankService([hg], config=cfg, device="cuda",
+                          serving=ServingConfig(coalesce=True))
+    for dels, ins in (*batches, nd_batch):
+        svc.submit(0, dels, ins)
+    svc.start()
+    svc.stop()
+    rep = svc.report()
+    err = _linf(svc.sessions[0].ranks, p3["ref"], n)
+    print(f"coalesced: {rep['requests_done']} requests in "
+          f"{rep['sessions'][0]['n_updates']} update(s), exec p50 "
+          f"{rep['exec_p50_ms']} ms; L_inf {err:.3e} to phase 3's oracle "
+          f"[{smi}]", flush=True)
+    _check(rep["requests_done"] == N_DF_UPDATES + 1
+           and rep["sessions"][0]["n_updates"] == 1,
+           f"the coalesced run: {rep['requests_done']} requests, "
+           f"{rep['sessions'][0]['n_updates']} updates")
+    _check(err <= 1e-8, f"coalesced ranks off the oracle: {err}")
+    svc.sessions[0].close()
+    del svc
+    shutil.rmtree(STORE_ROOT / "serving", ignore_errors=True)
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches,
+                "blocked_sweep": 0}
+    print(f"launches on the serving path: {launches}; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    _check(launches["block_spmv"] > 0 and launches["block_spmv_active"] > 0,
+           f"the serving path missed a kernel: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2628,12 +2993,16 @@ def main() -> None:
     integ_launches = _integrity_phase(bsk, hg, batches, nd_batch, p3,
                                       pool_bytes // 2, tier_ms, smi)
     torch.cuda.empty_cache()
+
+    # -- phase 13: serving, after phase 12's sessions closed ----------------
+    serve_launches = _serving_phase(bsk, hg, batches, nd_batch, p3, smi)
+    torch.cuda.empty_cache()
     for row in table:
         row["launches"] = sum(
             path[row["name"]] for path in (
                 launches, push_launches, var_launches, blk_launches,
                 dur_launches, tier_launches, tpush_launches,
-                integ_launches))
+                integ_launches, serve_launches))
     table.append(sweep_row)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -1,5 +1,5 @@
-"""`EngineConfig` of the port (ports ``EngineConfig`` from
-``src/repro/api/config.py``).
+"""`EngineConfig` and `ServingConfig` of the port (port ``EngineConfig``,
+``SHED_POLICIES`` and ``ServingConfig`` from ``src/repro/api/config.py``).
 
 Same fields and the same construction-time validation as the JAX config.
 ``engine`` resolves through :mod:`repro_torch.api.registry` (``None`` →
@@ -49,6 +49,10 @@ TOPOLOGIES = ("single", "sharded")
 EXCHANGES = ("full", "bf16", "delta")
 DURABILITIES = ("none", "wal")
 PARTITIONERS = ("contiguous", "hash", "bfs_blocks")
+# load-shedding policies of a full serving queue (ServingConfig):
+#   "reject"      — refuse the NEW submit (caller sees AdmissionRejected);
+#   "drop_oldest" — shed the oldest queued request to admit the new one
+SHED_POLICIES = ("reject", "drop_oldest")
 # ROADMAP queue-A items that bring the values this slice rejects
 _LATER = {
     "engine:walk": "A 13 (walk engine / PPR)",
@@ -289,5 +293,71 @@ class EngineConfig:
         if unknown:
             raise TypeError(
                 f"unknown EngineConfig key(s) {unknown}; "
+                f"valid keys: {sorted(self.valid_keys())}")
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Validated, immutable serving policy of a
+    :class:`~repro_torch.api.service.PageRankService` (field meanings,
+    defaults and errors as in ``repro.api.config.ServingConfig``): the
+    per-stream admission bound and ``shed_policy``, the default
+    ``deadline_s``, ``max_retries`` with exponential ``retry_backoff_s``,
+    ``coalesce`` (fold a stream's queued run into one batch per dispatch;
+    ``False`` is bit for bit a sequential session), ``degraded_reads``
+    from a per-slot read view held to ``staleness_budget_s`` (refreshed on
+    the read path past ``snapshot_refresh_frac`` of it), the watchdog's
+    ``heartbeat_timeout_s``, and the background ``scrub``ber."""
+
+    max_queue_depth: int = 64
+    shed_policy: str = "reject"
+    deadline_s: Optional[float] = None
+    max_retries: int = 1
+    retry_backoff_s: float = 0.02
+    coalesce: bool = True
+    degraded_reads: bool = True
+    staleness_budget_s: float = 0.5
+    snapshot_refresh_frac: float = 0.5
+    heartbeat_timeout_s: float = 30.0
+    watchdog: bool = True
+    scrub: bool = True
+
+    def __post_init__(self):
+        if int(self.max_queue_depth) < 1:
+            raise ValueError(f"max_queue_depth={self.max_queue_depth} "
+                             "must be >= 1")
+        if self.shed_policy not in SHED_POLICIES:
+            raise ValueError(f"shed_policy={self.shed_policy!r} invalid; "
+                             f"expected one of {SHED_POLICIES}")
+        if self.deadline_s is not None and float(self.deadline_s) < 0:
+            raise ValueError(f"deadline_s={self.deadline_s} must be >= 0 "
+                             "(or None for no deadline)")
+        if int(self.max_retries) < 0:
+            raise ValueError(f"max_retries={self.max_retries} must be >= 0")
+        if float(self.retry_backoff_s) < 0:
+            raise ValueError(f"retry_backoff_s={self.retry_backoff_s} "
+                             "must be >= 0")
+        if float(self.staleness_budget_s) < 0:
+            raise ValueError(f"staleness_budget_s={self.staleness_budget_s}"
+                             " must be >= 0")
+        if not (0.0 < float(self.snapshot_refresh_frac) <= 1.0):
+            raise ValueError(
+                f"snapshot_refresh_frac={self.snapshot_refresh_frac} "
+                "outside (0, 1] — it is the fraction of the staleness "
+                "budget at which reads refresh their snapshot")
+        if float(self.heartbeat_timeout_s) <= 0:
+            raise ValueError(f"heartbeat_timeout_s="
+                             f"{self.heartbeat_timeout_s} must be > 0")
+
+    @classmethod
+    def valid_keys(cls) -> tuple:
+        return tuple(f.name for f in dataclasses.fields(cls))
+
+    def replace(self, **kw) -> "ServingConfig":
+        unknown = sorted(set(kw) - set(self.valid_keys()))
+        if unknown:
+            raise TypeError(
+                f"unknown ServingConfig key(s) {unknown}; "
                 f"valid keys: {sorted(self.valid_keys())}")
         return dataclasses.replace(self, **kw)

@@ -14,7 +14,10 @@ replay of the last batch), ``query``, ``top_k``, ``ranks``, ``warmup``,
 (``save``, ``restore``, ``fork`` and ``device_footprint``) and the
 corruption fault domain (``verify`` with its repair ladder,
 ``inject_corruption``, the fused invariant check of every drive,
-``report().integrity``)::
+``report().integrity``), the hooks a
+:class:`~repro_torch.api.service.PageRankService` uses (the ``_service``
+backref ``close`` unregisters through, and :class:`ReadView`, the
+ranks-only copy degraded reads are served from)::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -230,6 +233,92 @@ def _entry_of(index: ops.PackedIndex, key: int, bi: int, bj: int) -> int:
     return off + int(hit[0, 0])
 
 
+def _vertex_ids(vertices, n: int) -> np.ndarray:
+    """Validated int64 vertex ids of a read (the reference's errors)."""
+    arr = np.asarray(vertices)
+    if arr.size == 0:
+        return np.zeros(0, np.int64)
+    if arr.dtype == object or not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(
+            f"vertex ids must be integers, got dtype {arr.dtype} "
+            f"(value: {vertices!r})")
+    idx = arr.reshape(-1).astype(np.int64)
+    bad = (idx < 0) | (idx >= n)
+    if bad.any():
+        raise ValueError(
+            f"vertex id(s) {idx[bad][:8].tolist()} out of range for a "
+            f"graph with {n} vertices (valid ids: 0..{n - 1})")
+    return idx
+
+
+def _top_k_count(k, n: int) -> int:
+    if not isinstance(k, (int, np.integer)):
+        raise ValueError(
+            f"k must be an integer, got {type(k).__name__} ({k!r})")
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    return int(min(k, n))
+
+
+def _gather(R: torch.Tensor, idx: np.ndarray) -> np.ndarray:
+    return R[torch.as_tensor(idx, device=R.device)].cpu().numpy()
+
+
+def _top_k(R: torch.Tensor, valid: torch.Tensor, k: int
+           ) -> Tuple[np.ndarray, np.ndarray]:
+    # a stable descending sort: ties lower id first, as lax.top_k
+    masked = torch.where(valid, R, -torch.inf)
+    vals, idx = torch.sort(masked, descending=True, stable=True)
+    return vals[:k].cpu().numpy(), idx[:k].cpu().numpy()
+
+
+class ReadView:
+    """What a degraded read needs of a session and nothing more: clones of
+    the ranks and the valid mask, ``n``, and the batch index they hold.
+
+    The reference serves degraded reads from a ``fork()``, which shares
+    JAX's immutable arrays.  The port's fork copies every tensor an update
+    writes (at n = 1M about one more tile pool), so a service refreshing
+    its read replica after every dispatch keeps this view instead (at
+    n = 1M 9 MB).  The clones are the view's own: an update writing the
+    ranks in place, a ``rank`` corruption of the live copy, or ``close()``
+    leave it as it was.  On a card the clones are taken on the caller's
+    current stream and ``ready`` is recorded after them; a read on another
+    stream waits on it before it gathers.  ``query`` and ``top_k`` give the
+    session's values, ids, tie order and errors."""
+
+    __slots__ = ("R", "valid", "n", "batch_index", "device", "ready")
+
+    def __init__(self, sess: "PageRankSession"):
+        self.R = sess.R.clone()
+        self.valid = sess.valid.clone()
+        self.n = sess.n
+        self.batch_index = sess._batch_index
+        self.device = sess.device
+        self.ready = None
+        if self.R.is_cuda:
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(self.R.device))
+
+    @property
+    def nbytes(self) -> int:
+        return self.R.nbytes + self.valid.nbytes
+
+    def _wait(self) -> None:
+        if self.ready is not None:
+            torch.cuda.current_stream(self.R.device).wait_event(self.ready)
+
+    def query(self, vertices) -> np.ndarray:
+        idx = _vertex_ids(vertices, self.n)
+        self._wait()
+        return _gather(self.R, idx)
+
+    def top_k(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        k = _top_k_count(k, self.n)
+        self._wait()
+        return _top_k(self.R, self.valid, k)
+
+
 @dataclasses.dataclass
 class StreamBatchResult:
     """Outcome of one update step."""
@@ -335,6 +424,7 @@ class PageRankSession:
                 "open the session with from_graph and the pallas engine "
                 "(from_snapshot has no operand mirrors to seed)")
         self._closed = False
+        self._service = None          # backref set by PageRankService
         self._history: List[StreamBatchResult] = []
         self._warm_idx: Optional[int] = None
         self._queries = 0
@@ -1445,16 +1535,17 @@ class PageRankSession:
         if rung == "restore":
             if self.store is None:
                 return None         # no durable store to fall back to
-            history, warm, queries = (self._history, self._warm_idx,
-                                      self._queries)
+            svc, history = self._service, self._history
+            warm, queries = self._warm_idx, self._queries
             recov = self._recoveries
             counters = (self._integrity_checks, self._corruption_detected)
             store_dir = self.store.dir
             fresh = type(self).restore(store_dir, device=self.device)
             replayed = sum(r.replayed_batches for r in fresh._recoveries)
             # adopt the restored state in place, keeping this session's
-            # identity (history, counters)
+            # identity (service registration, history, counters)
             self.__dict__.update(fresh.__dict__)
+            self._service = svc
             self._history, self._warm_idx, self._queries = (history, warm,
                                                             queries)
             self._recoveries = recov + fresh._recoveries
@@ -1589,46 +1680,29 @@ class PageRankSession:
         raise ValueError("no live tile entry to corrupt")
 
     # -- serving reads -------------------------------------------------------
-    def _vertex_ids(self, vertices) -> np.ndarray:
-        arr = np.asarray(vertices)
-        if arr.size == 0:
-            return np.zeros(0, np.int64)
-        if arr.dtype == object or not np.issubdtype(arr.dtype, np.integer):
-            raise ValueError(
-                f"vertex ids must be integers, got dtype {arr.dtype} "
-                f"(value: {vertices!r})")
-        idx = arr.reshape(-1).astype(np.int64)
-        bad = (idx < 0) | (idx >= self.n)
-        if bad.any():
-            raise ValueError(
-                f"vertex id(s) {idx[bad][:8].tolist()} out of range for a "
-                f"graph with {self.n} vertices (valid ids: 0..{self.n - 1})")
-        return idx
-
     def query(self, vertices: Union[int, Sequence[int], np.ndarray]
               ) -> np.ndarray:
         """Ranks of the given vertices: one device gather, only
         ``len(vertices)`` values cross to the host."""
         self._ensure_open()
-        idx = self._vertex_ids(vertices)
-        vals = self.R[torch.as_tensor(idx, device=self.device)]
+        idx = _vertex_ids(vertices, self.n)
+        vals = _gather(self.R, idx)
         self._queries += int(idx.shape[0])
-        return vals.cpu().numpy()
+        return vals
 
     def top_k(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(values, vertex ids) of the k highest-ranked vertices, computed on
         the device (ties: lower id first, as ``lax.top_k``)."""
         self._ensure_open()
-        if not isinstance(k, (int, np.integer)):
-            raise ValueError(
-                f"k must be an integer, got {type(k).__name__} ({k!r})")
-        if k < 1:
-            raise ValueError(f"k={k} must be >= 1")
-        k = int(min(k, self.n))
-        masked = torch.where(self.valid, self.R, -torch.inf)
-        vals, idx = torch.sort(masked, descending=True, stable=True)
+        k = _top_k_count(k, self.n)
+        out = _top_k(self.R, self.valid, k)
         self._queries += k
-        return vals[:k].cpu().numpy(), idx[:k].cpu().numpy()
+        return out
+
+    def _read_view(self) -> ReadView:
+        """The ranks-only copy a service serves degraded reads from."""
+        self._ensure_open()
+        return ReadView(self)
 
     @property
     def ranks(self) -> np.ndarray:
@@ -1658,11 +1732,15 @@ class PageRankSession:
                              "PageRankSession")
 
     def close(self) -> None:
-        """End the session and drop every device buffer reference.
-        Idempotent."""
+        """End the session: unregister from any
+        :class:`~repro_torch.api.service.PageRankService` and drop every
+        device buffer reference.  Idempotent."""
         if self._closed:
             return
         self._closed = True
+        svc, self._service = self._service, None
+        if svc is not None:
+            svc._detach(self)
         for attr in ("R", "inc", "g", "valid", "_out_deg", "_rb_in",
                      "_rb_out", "_bmat", "_fault_tables", "_residual",
                      "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev",
@@ -1794,6 +1872,7 @@ class PageRankSession:
         new._history = []
         new._warm_idx = 0 if self._warm_idx is not None else None
         new._queries = 0
+        new._service = None       # forks are not registered with a service
         new.store = None
         new.store_dir = None
         new._process_domain = None

@@ -1,8 +1,9 @@
 """Fault domains of the port: the thread, process and corruption domains
 (ports ``DOMAINS``, ``RecoveryRecord``, ``FaultDomain``,
 ``ThreadFaultDomain``, ``ProcessFaultDomain``, ``SessionFault``,
-``CORRUPTION_KINDS``, ``CorruptionFault``, ``CorruptionFaultDomain`` and
-``resolve_thread_plan`` from ``src/repro/core/fault_domain.py``).
+``CORRUPTION_KINDS``, ``CorruptionFault``, ``CorruptionFaultDomain``,
+``SlotHeartbeat`` and ``resolve_thread_plan`` from
+``src/repro/core/fault_domain.py``).
 
 The paper's own fault model: pseudo-threads inside one sweep delay or
 crash-stop, and surviving capacity re-covers their blocks on later sweeps.
@@ -22,14 +23,17 @@ operand mirror, a torn mirror scatter, a corrupted host graph.
 :class:`CorruptionFaultDomain` queues such faults for the next ``update``;
 ``session.verify`` (:mod:`repro_torch.core.integrity`) detects and repairs
 them.  Every recovery appends a :class:`RecoveryRecord` that
-``session.report()`` surfaces.  :class:`SessionFault` is plain data here
-(``ChaosEvent.session_fault`` builds one); the service that consumes it and
-the session domain's heartbeat are ROADMAP item A 12, the shard domain A 14.
+``session.report()`` surfaces.  The session domain is a serving slot
+that dies or stalls: :class:`SessionFault` schedules one
+(``PageRankService.inject_session_fault``, ``ChaosEvent.session_fault``),
+the service's watchdog reads :class:`SlotHeartbeat` and fails the slot
+over from its store.  The shard domain is ROADMAP item A 14.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 from repro_torch.core.faults import FaultPlan
 
@@ -216,6 +220,35 @@ class CorruptionFaultDomain(FaultDomain):
                 "CorruptionFaultDomain instruments the single-device "
                 "streaming path (device mirrors + tile pool); sharded "
                 "sessions take ShardFaultDomain")
+
+
+class SlotHeartbeat:
+    """Per-slot liveness bookkeeping for the service watchdog (the
+    reference's, without its ``beat``, ``is_busy`` and ``age_s``, which
+    nothing calls).
+
+    A worker marks a slot ``busy`` when it picks up work and ``idle`` when
+    it finishes.  ``stale(timeout)`` is the stuck-slot predicate: busy AND
+    marked last more than ``timeout`` seconds ago — an idle slot is never
+    stale, however long it idles."""
+
+    def __init__(self):
+        self._last: Dict[int, float] = {}
+        self._busy_since: Dict[int, float] = {}
+
+    def busy(self, slot: int) -> None:
+        now = time.perf_counter()
+        self._busy_since[slot] = now
+        self._last[slot] = now
+
+    def idle(self, slot: int) -> None:
+        self._busy_since.pop(slot, None)
+        self._last[slot] = time.perf_counter()
+
+    def stale(self, slot: int, timeout_s: float) -> bool:
+        if slot not in self._busy_since:
+            return False
+        return (time.perf_counter() - self._last.get(slot, 0.0)) > timeout_s
 
 
 def resolve_thread_plan(faults: Any, fault_domain: Any) -> Optional[Any]:

@@ -175,7 +175,7 @@ def block_spmv_cuda(tile_idx: torch.Tensor, tile_cols: torch.Tensor, index,
         *_index_ptrs(index), x.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(lib, rc, "block_spmv")
-    block_spmv_cuda.launches += 1
+    nvcc.count_launch(block_spmv_cuda)
     return y
 
 
@@ -215,7 +215,7 @@ def block_spmv_active_cuda(active_ids: torch.Tensor, tile_idx: torch.Tensor,
         x.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(lib, rc, "block_spmv_active")
-    block_spmv_active_cuda.launches += 1
+    nvcc.count_launch(block_spmv_active_cuda)
     return out
 
 

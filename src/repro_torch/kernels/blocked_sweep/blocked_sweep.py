@@ -204,7 +204,7 @@ def blocked_sweep_cuda(sg: SweepGraph, R, read, affected, rc, slot_ids,
         msg = lib.blocked_sweep_error_string(rc_code).decode()
         raise RuntimeError(f"blocked_sweep launch failed: CUDA error "
                            f"{rc_code} ({msg})")
-    blocked_sweep_cuda.launches += 1
+    nvcc.count_launch(blocked_sweep_cuda)
     return maxdr, edges
 
 

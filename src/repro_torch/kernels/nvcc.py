@@ -6,7 +6,9 @@ is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 name keyed by a hash of the source and the flags, and loaded with
 ``ctypes``.  A failed build raises; nothing falls back.  Nothing here runs
 when a module is imported, so the CPU tests import every kernel module
-without a toolkit.
+without a toolkit.  A service launches from one thread per slot, so a
+library loads under its own lock (once a process) and the wrappers count
+their launches through :func:`count_launch`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Callable, List, Optional
 
@@ -50,11 +53,18 @@ class Library:
         self.src, self.stem, self._bind = src, stem, bind
         self.lib: Optional[ctypes.CDLL] = None
         self.builds = 0
+        self._lock = threading.Lock()
         Library._all.append(self)
 
     def load(self) -> ctypes.CDLL:
         if self.lib is not None:
             return self.lib
+        with self._lock:
+            if self.lib is None:
+                self._build_and_load()
+        return self.lib
+
+    def _build_and_load(self) -> None:
         text = self.src.read_bytes()
         key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                              ).hexdigest()[:16]
@@ -73,11 +83,20 @@ class Library:
             os.replace(tmp, so)       # atomic: concurrent builds agree
         lib = ctypes.CDLL(str(so))
         self._bind(lib)
-        self.lib = lib
         self.builds += 1
-        return lib
+        self.lib = lib
 
 
 def total_builds() -> int:
     """Kernel-library loads made by this process, over every library."""
     return sum(lib.builds for lib in Library._all)
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a read-modify-write that two
+    threads launching at once would otherwise lose)."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

@@ -25,9 +25,6 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # reference names of later slices, by the ROADMAP item that ports them
 UNPORTED = {
-    "AdmissionRejected": "A 12", "PageRankService": "A 12",
-    "ReadResult": "A 12", "ServingConfig": "A 12", "SessionFault": "A 12",
-    "UpdateRequest": "A 12",
     "ShardFault": "A 14", "ShardFaultDomain": "A 14",
 }
 

@@ -877,3 +877,130 @@ def test_cuda_session_detects_and_heals_a_tile_flip(cuda_device):
     assert rep.ok and rep.repairs == ["rebuild"]
     assert np.abs(gs.ranks - cs.ranks).max() <= 1e-12
     gs.close(), cs.close()
+
+
+@pytest.mark.cuda
+def test_cuda_launches_from_four_threads_count_exactly(cuda_device):
+    """A service launches from one thread per slot: four threads on four
+    streams race a library's first load (it loads once) and then launch
+    both kernels; every launch is counted and no build is added."""
+    import threading
+    from repro_torch.kernels import nvcc
+    fresh = nvcc.Library(bsk._SRC, "block_spmv", bsk._bind)
+    try:
+        gate = threading.Barrier(4)
+
+        def first_load():
+            gate.wait()
+            fresh.load()
+
+        threads = [threading.Thread(target=first_load) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert fresh.builds == 1
+    finally:
+        nvcc.Library._all.remove(fresh)
+    n, block, reps = 2000, 64, 50
+    rng = np.random.default_rng(4)
+    mat = tops.build_block_sparse(rng.integers(0, n, 20000),
+                                  rng.integers(0, n, 20000), n, n,
+                                  block=block, dtype=torch.float64,
+                                  padded=True, device=cuda_device)
+    x = tops._pad_x(mat, torch.from_numpy(rng.random(n)).to(cuda_device))
+    ids = torch.arange(mat.n_rb, dtype=torch.int32, device=cuda_device)
+    kw = dict(block=block, max_tiles=mat.max_tiles)
+    kargs = (mat.tile_idx, mat.tile_cols, mat.index, x)
+    want = bsk.block_spmv_cuda(*kargs, **kw)
+    want_a = bsk.block_spmv_active_cuda(ids, *kargs, **kw)
+    torch.cuda.synchronize()
+    before = (bsk.block_spmv_cuda.launches,
+              bsk.block_spmv_active_cuda.launches, nvcc.total_builds())
+    streams = [torch.cuda.Stream() for _ in range(4)]
+    bad = []
+    gate = threading.Barrier(4)
+
+    def launch(s):
+        gate.wait()
+        with torch.cuda.stream(s):
+            for _ in range(reps):
+                y = bsk.block_spmv_cuda(*kargs, **kw)
+                ya = bsk.block_spmv_active_cuda(ids, *kargs, **kw)
+            s.synchronize()
+        if not (torch.equal(y, want) and torch.equal(ya, want_a)):
+            bad.append(s)
+
+    threads = [threading.Thread(target=launch, args=(s,)) for s in streams]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    assert (bsk.block_spmv_cuda.launches, bsk.block_spmv_active_cuda.launches,
+            nvcc.total_builds()) == (before[0] + 4 * reps,
+                                     before[1] + 4 * reps, before[2])
+
+
+@pytest.mark.cuda
+def test_cuda_service_slots_on_streams_match_cpu(cuda_device):
+    """Two slots on their own streams in background mode, with reader
+    threads, end where the same submits leave a synchronous CPU service;
+    every read is served from a view that was ready."""
+    import threading
+    from repro_torch.api import EngineConfig, PageRankService, ServingConfig
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import rmat
+    hg = rmat(9, avg_degree=6, seed=3)
+    cfg = EngineConfig(block_size=64, tau=1e-10)
+    batches, cur = [], hg
+    for i in range(6):
+        d, ins = random_batch(cur, 5e-3, seed=40 + i)
+        batches.append((d, ins))
+        cur = cur.apply_batch(d, ins)
+    sv = ServingConfig(coalesce=False)
+    cpu = PageRankService([hg, hg], config=cfg, serving=sv, device="cpu")
+    gpu = PageRankService([hg, hg], config=cfg, serving=sv,
+                          device=cuda_device)
+    streams = {gpu._streams[0], gpu._streams[1]}
+    assert len(streams) == 2
+    assert torch.cuda.current_stream() not in streams
+    for d, ins in batches:
+        for i in range(2):
+            cpu.submit(i, d, ins)
+    cpu.run_until_drained()
+    stop, reads, errors = threading.Event(), [], []
+
+    def reader():
+        try:
+            while not stop.is_set():
+                reads.append(np.asarray(gpu.query(0, [0, 1, 2])))
+                gpu.top_k(1, 5)
+        except Exception as e:   # surfaced by the assertion below
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader) for _ in range(2)]
+    gpu.start()
+    for t in threads:
+        t.start()
+    try:
+        for d, ins in batches:
+            for i in range(2):
+                gpu.submit(i, d, ins)
+    finally:
+        gpu.stop()
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    assert not errors and reads
+    rep = gpu.report()
+    assert rep["requests_done"] == 12 and rep["retries"] == 0
+    assert not any(r.error for r in gpu.finished)
+    for i in range(2):
+        assert np.abs(gpu.sessions[i].ranks
+                      - cpu.sessions[i].ranks).max() <= 1e-12
+        assert gpu.sessions[i].report().retraces_post_warmup == 0
+    np.testing.assert_array_equal(np.asarray(gpu.query(0, [0, 1, 2])),
+                                  gpu.sessions[0].query([0, 1, 2]))
