@@ -161,13 +161,29 @@ Phases, each of which raises (non-zero exit) on any failed check:
    bit-equal to the lone run, every read bit-equal to the lone run at its
    view's batch index, every staleness within the budget); idle reads are
    timed; a service opened from the host graph folds phase 3's 9 batches
-   into one coalesced dispatch, within 1e-8 of phase 3's oracle.
+   into one coalesced dispatch, within 1e-8 of phase 3's oracle;
+14. the walk engine and PPR on phase 3's graph (R = 16, L = 48, f64):
+   the device cipher against the plain threefry on 10^6 (seed, wid) pairs,
+   ``walk_regen`` on 4,096 walks through the degree-7 vertices (their rows
+   reversed) and over every walk (the open's regeneration) and
+   ``walk_touch`` on one batch's touched set, each equal to its plain
+   version and timed beside its bound; then, with the launch counters
+   zeroed just before and read at the end, a walk session opens, warms up
+   and takes phase 3's 8 ``df`` batches and its ``nd`` batch (no build
+   after warmup, each update delta-localized), equals a fresh store on the
+   final graph, is restored exactly by a delete and reinsert of 64 edges,
+   lies within L1 0.2 of phase 3's oracle, serves ``ppr_query`` equal to a
+   numpy fold of the seeds' rows (ties lower id first) and saves and
+   restores bit for bit; a one-slot walk service takes the 8 batches and
+   serves degraded ``ppr_query`` reads equal to the lone session's at the
+   view's batch index, its read view's refresh timed.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
 path's (phase 8), the durable path's (phase 9), the tiered path's
 (phase 10), the tiered push path's (phase 11), the integrity path's
-(phase 12) and the serving path's (phase 13).  Prints the
+(phase 12), the serving path's (phase 13) and the walk path's (phase 14;
+the walk kernels run only there).  Prints the
 kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -198,6 +214,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F64_FLOPS = 34e12                # H100 SXM FP64 outside the tensor cores
+# H100 SXM INT32: 64 INT32 lanes a SM, half the 128 FP32 lanes behind the
+# data sheet's 67 TFLOP/s (which counts an FMA as two operations)
+INT32_OPS = 16.7e12
 SIDE = 1024                      # grid_road(1024): n = 1,048,576
 BLOCK = 64
 TAU = 1e-10
@@ -2802,6 +2821,421 @@ def _serving_phase(bsk, hg, batches, nd_batch, p3: dict, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the walk engine and PPR on the main path's graph
+# ---------------------------------------------------------------------------
+
+WALK_R = 16                      # the walk engine's default walks a vertex
+WALK_L = 48                      # ... and walk length
+WALK_PARITY_IDS = 4096           # walk_regen held to its plain version
+THREEFRY_PAIRS = 1_000_000       # (seed, wid) pairs of the cipher check
+CHURN_EDGES = 64                 # deleted and reinserted: walks restored
+PPR_SEEDS = (0, 524_800, 1_048_575)
+PPR_K = 10
+WALK_L1_BOUND = 0.2              # estimate vs phase 3's oracle (~0.07 seen)
+# 32-bit integer operations of one threefry2x32 block in walk.cu: 20 rounds
+# of (add, rotate, xor) and 2 + 5 * 2 key additions (the key schedule, once
+# a walk, is not counted)
+THREEFRY_INT_OPS = 72
+
+
+def _event_ms(fn, setup=None, reps: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` runs; ``setup`` runs
+    before each, outside the timed window."""
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _scan_entries(rows: torch.Tensor, n: int) -> int:
+    """Entries a row scan that stops at a row's first sentinel reads: its
+    live prefix and the sentinel, if the row has one."""
+    live = (rows < n).sum(1)
+    return int((live + (live < rows.shape[1]).long()).sum())
+
+
+def _int_err(*pairs) -> float:
+    """Largest absolute difference over pairs of integer tensors (0 where a
+    pair is equal)."""
+    err = 0
+    for a, b in pairs:
+        if not torch.equal(a, b):
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return float(err)
+
+
+def _walk_kernel_checks(wk, threefry, ws, touched: np.ndarray,
+                        smi: str) -> list:
+    """Phase 14, part 1: each walk kernel held to its plain version on the
+    card at the main path's shapes (exact), the device cipher to the plain
+    threefry on ``THREEFRY_PAIRS`` (seed, wid) pairs, and both kernels
+    timed beside their work bounds.  Returns the kernel-table rows (their
+    launches are filled in by the caller)."""
+    n, R, L = ws.n, ws.R, ws.L
+    nr = n * R
+    dev = ws.walks.device
+    rng = np.random.default_rng(14)
+    # -- the cipher: fold_in keys of (seed, wid) pairs, then draw words ------
+    seeds = rng.integers(0, 1 << 40, THREEFRY_PAIRS, dtype=np.int64)
+    k0 = torch.as_tensor(seeds >> 32, device=dev)
+    k1 = torch.as_tensor(seeds & 0xFFFFFFFF, device=dev)
+    zero = torch.zeros(THREEFRY_PAIRS, dtype=torch.int64, device=dev)
+    wid = torch.as_tensor(rng.integers(0, 1 << 31, THREEFRY_PAIRS),
+                          device=dev)
+    ctr = torch.as_tensor(rng.integers(0, 2 * L, THREEFRY_PAIRS), device=dev)
+    kc = wk.threefry_words_cuda(k0, k1, zero, wid)
+    kp = threefry.threefry2x32((k0, k1), zero, wid)
+    dc = wk.threefry_words_cuda(kc[0], kc[1], zero, ctr)
+    dp = threefry.threefry2x32(kp, zero, ctr)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(kc + dc, kp + dp)),
+           "the device cipher differs from the plain threefry")
+    print(f"threefry: {THREEFRY_PAIRS} (seed, wid) fold_in keys and draw "
+          "words on the card equal the plain version", flush=True)
+
+    # -- walk_regen on the walks through the degree-7 vertices, filled up to
+    # WALK_PARITY_IDS with walks through the degree-6 ones, and the last id
+    dmax = int(ws.deg[:n].max())
+    picked = []
+    for d in (dmax, dmax - 1):
+        tm = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        tm[:n] = ws.deg[:n] == d
+        flags, _ = wk.walk_touch_cuda(ws.walks, tm, n_walks=nr)
+        picked.append(flags.nonzero().reshape(-1))
+    fill = picked[1][~torch.isin(picked[1], picked[0])]
+    ids = torch.cat([picked[0], fill])[:WALK_PARITY_IDS - 1]
+    ids = torch.cat([ids.sort().values, torch.tensor([nr - 1], device=dev)]
+                    ).to(torch.int32)
+    _check(int(ids.shape[0]) == WALK_PARITY_IDS,
+           f"only {int(ids.shape[0])} walk ids for the walk_regen check")
+    adj = ws.adj.clone()            # those rows reversed: the walks move
+    for d in (dmax, dmax - 1):
+        hubs = (ws.deg[:n] == d).nonzero().reshape(-1)
+        adj[hubs, :d] = adj[hubs, :d].flip(1)
+    outs, regen_ms = [], []
+    for fn in (wk.walk_regen_cuda, wk.walk_regen_plain):
+        w, c = ws.walks.clone(), ws.counts.clone()
+        box = {}
+        regen_ms.append(_event_ms(
+            lambda: box.update(s=fn(w, c, adj, ws.deg, ids, R=R,
+                                    alpha=ws._alpha32, key=ws._key)),
+            reps=1))
+        outs.append((w, c, int(box["s"])))
+    regen_err = _int_err((outs[0][0], outs[1][0]), (outs[0][1], outs[1][1]))
+    regen_err = max(regen_err, float(abs(outs[0][2] - outs[1][2])))
+    _check(regen_err == 0.0, "walk_regen differs from its plain version")
+    moved = int((outs[0][0][ids.long()] != ws.walks[ids.long()]).any(1)
+                .sum())
+    _check(moved > 0, "the reversed rows changed no walk")
+    print(f"walk_regen: {int(ids.shape[0])} walk ids ({len(picked[0])} "
+          f"through the vertices of out-degree {dmax}, the rest through "
+          f"those of out-degree {dmax - 1}, and the last id) with those "
+          f"vertices' rows reversed: walks, counts and steps "
+          f"({outs[0][2]}) equal the plain version; {moved} walks moved; "
+          f"{regen_ms[0]:.4f} ms, plain {regen_ms[1]:.1f} ms [{smi}]",
+          flush=True)
+    del outs, w, c, adj, box
+
+    # -- walk_touch on one batch's touched set --------------------------------
+    tm = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    tm[torch.as_tensor(touched, device=dev)] = True
+    f1, m1 = wk.walk_touch_cuda(ws.walks, tm, n_walks=nr)
+    t0 = time.perf_counter()
+    f2, m2 = wk.walk_touch_plain(ws.walks, tm, n_walks=nr)
+    torch.cuda.synchronize()
+    touch_plain_ms = (time.perf_counter() - t0) * 1e3
+    touch_err = max(_int_err((f1, f2)), float(abs(int(m1) - int(m2))))
+    _check(touch_err == 0.0, "walk_touch differs from its plain version")
+    touch_ms = _event_ms(lambda: wk.walk_touch_cuda(ws.walks, tm,
+                                                    n_walks=nr), reps=5)
+    entries = _scan_entries(ws.walks[:nr], n)
+    touch_bytes = 4 * entries + (n + 1) + nr
+    touch_bound = touch_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"walk_touch: {len(touched)} touched vertices, {int(f1.sum())} "
+          f"walks flagged, mass {int(m1)}: equal the plain version; "
+          f"{touch_ms:.4f} ms (bound {touch_bound:.4f} ms by bytes: "
+          f"{touch_bytes} bytes, {entries} row entries read), plain "
+          f"{touch_plain_ms:.1f} ms [{smi}]", flush=True)
+    del f1, f2
+
+    # -- the open's regeneration: every walk from sentinel rows --------------
+    all_ids = torch.arange(nr, dtype=torch.int32, device=dev)
+    w, c = torch.empty_like(ws.walks), torch.empty_like(ws.counts)
+
+    def fresh():
+        w.fill_(n)
+        c.zero_()
+
+    open_ms = _event_ms(
+        lambda: wk.walk_regen_cuda(w, c, ws.adj, ws.deg, all_ids, R=R,
+                                   alpha=ws._alpha32, key=ws._key),
+        setup=fresh)
+    full_err = _int_err((w, ws.walks), (c, ws.counts))
+    _check(full_err == 0.0, "a full walk_regen differs from the open's")
+    plain_open_ms = _event_ms(
+        lambda: wk.walk_regen_plain(w, c, ws.adj, ws.deg, all_ids, R=R,
+                                    alpha=ws._alpha32, key=ws._key),
+        setup=fresh, reps=1)
+    plain_err = _int_err((w, ws.walks), (c, ws.counts))
+    _check(plain_err == 0.0,
+           "the plain full regeneration differs from the open's")
+    regen_err = max(regen_err, full_err, plain_err)
+    live = ws.total_steps
+    open_bytes = (4 * nr                    # each row's sentinel, read
+                  + 4 * (nr + 1) * L        # every row written
+                  + 4 * nr                  # the id list
+                  + 8 * (n + 1)             # counts read and written
+                  + ws.adj.nbytes + ws.deg.nbytes)
+    # a walk of l live entries draws at min(l, L - 1) steps, two blocks a
+    # step, after one block for its key (fold_in)
+    draw_steps = int((ws.walks[:nr] < n).sum(1).clamp(max=L - 1).sum())
+    open_ops = THREEFRY_INT_OPS * (nr + 2 * draw_steps)
+    t_bytes = open_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = open_ops / INT32_OPS * 1e3
+    open_bound, open_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    print(f"walk_regen, the open: all {nr} walks ({live} live entries, "
+          f"{live / nr:.3f} a walk, {draw_steps} steps that draw) "
+          f"{open_ms:.3f} ms (bound {open_bound:.4f} ms by {open_by}: "
+          f"{open_bytes} bytes {t_bytes:.4f} ms, {open_ops} cipher int32 "
+          f"operations {t_ops:.4f} ms), plain {plain_open_ms:.1f} ms; "
+          f"equal the open's walks and counts [{smi}]", flush=True)
+    del w, c, all_ids
+    torch.cuda.empty_cache()
+    return [
+        dict(name="walk_regen", route="cuda",
+             source="src/repro_torch/kernels/walk/csrc/walk.cu",
+             replaces="src/repro/core/walk_engine.py:70 (_regen_step, "
+             "lax.scan, no Pallas kernel)",
+             launches=0, max_abs_err=regen_err, ms=open_ms,
+             plain_ms=plain_open_ms, bound_ms=open_bound, bound_by=open_by,
+             library_ms=None),
+        dict(name="walk_touch", route="cuda",
+             source="src/repro_torch/kernels/walk/csrc/walk.cu",
+             replaces="src/repro/core/walk_engine.py:240 (the host reverse "
+             "index, no Pallas kernel)",
+             launches=0, max_abs_err=touch_err, ms=touch_ms,
+             plain_ms=touch_plain_ms, bound_ms=touch_bound,
+             bound_by="bytes", library_ms=None)]
+
+
+def _numpy_ppr(rows: np.ndarray, n: int, n_seeds: int, k: int):
+    """The personalized top-k folded on the host from the seeds' walk rows:
+    visit counts times (1 - alpha_f32) · 1/(|S|·R), ties lower id first."""
+    cnt = np.bincount(rows[rows < n], minlength=n).astype(np.float64)
+    scale = (np.float64(np.float32(1.0) - np.float32(0.85))
+             * (1.0 / np.float64(n_seeds * WALK_R)))
+    vals = cnt * scale
+    order = np.lexsort((np.arange(n), -vals))[:k]
+    return vals[order], order
+
+
+def _walk_phase(bsk, bws, hg, batches, nd_batch, ref, smi: str) -> tuple:
+    """Phase 14: the walk engine on phase 3's graph at full width (R = 16,
+    L = 48, f64).  Part 1 holds the kernels to their plain versions and
+    times them; then the launch counters are zeroed and the main path runs:
+    a walk session opens (one walk_regen over every walk), warms up and
+    takes phase 3's 8 df batches and its nd batch; its walks and counts
+    must equal a fresh store on the final graph, a delete and reinsert of
+    ``CHURN_EDGES`` edges must restore both, its estimate must lie within
+    ``WALK_L1_BOUND`` of phase 3's oracle (L1), ``ppr_query`` must equal a
+    numpy fold of the seeds' rows, a save and restore must give the same
+    walks, and a one-slot walk service must serve degraded ``ppr_query``
+    reads equal to the lone session's at the view's batch index.  Returns
+    the phase's launch counts and the kernel-table rows."""
+    from repro_torch.api import EngineConfig, PageRankService, PageRankSession
+    from repro_torch.core import threefry
+    from repro_torch.core import walk_engine as we
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.walk import walk as wk
+
+    t_phase = time.perf_counter()
+    n = hg.n
+    nr = n * WALK_R
+    dels0, ins0 = batches[0]
+    touched = np.unique(np.concatenate([dels0[:, 0], ins0[:, 0]]))
+    ws = we.WalkState(hg, R=WALK_R, L=WALK_L, seed=0, device="cuda")
+    rows = _walk_kernel_checks(wk, threefry, ws, touched, smi)
+    del ws
+    torch.cuda.empty_cache()
+
+    # -- the main path, counters zeroed -------------------------------------
+    for fn in (wk.walk_regen_cuda, wk.walk_touch_cuda, bsk.block_spmv_cuda,
+               bsk.block_spmv_active_cuda, bws.blocked_sweep_cuda):
+        fn.launches = 0
+    cfg = EngineConfig(engine="walk", dtype=torch.float64,
+                       walks_per_vertex=WALK_R, walk_length=WALK_L,
+                       walk_seed=0)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    mem = torch.cuda.memory_allocated() - mem0
+    dev_bytes = sess.report().device_bytes
+    print(f"walk session open: {t_open:.2f} s (one walk_regen over {nr} "
+          f"walks); card memory {mem / 1e9:.3f} GB (walks "
+          f"{sess.walks.walks.nbytes / 1e9:.3f} GB, adjacency "
+          f"{sess.walks.adj.nbytes / 1e6:.1f} MB, counts and degrees "
+          f"{(sess.walks.counts.nbytes + sess.walks.deg.nbytes) / 1e6:.1f} "
+          f"MB); report().device_bytes {dev_bytes} [{smi}]", flush=True)
+    sess.warmup()
+    builds0 = nvcc.total_builds()
+    lone = {0: sess.ppr_query(PPR_SEEDS, PPR_K)}
+    df = []
+    for i, (dels, ins) in enumerate(batches):
+        res = sess.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        df.append(res)
+        lone[i + 1] = sess.ppr_query(PPR_SEEDS, PPR_K)
+        print(f"walk df update {i}: {len(dels)} del + {len(ins)} ins, "
+              f"{res.wall_time_s * 1e3:.2f} ms, regenerated "
+              f"{res.regenerated_walks}, touched {res.touched_walks}, total "
+              f"{res.total_walks}, steps {res.stats.edges_processed}, host "
+              f"syncs {res.host_syncs}", flush=True)
+    nd = sess.update(*nd_batch, variant="nd")
+    torch.cuda.synchronize()
+    walls = np.array([r.wall_time_s for r in df]) * 1e3
+    print(f"walk nd update: {nd.wall_time_s * 1e3:.2f} ms, regenerated "
+          f"{nd.regenerated_walks}, touched {nd.touched_walks}, steps "
+          f"{nd.stats.edges_processed}; df wall p50 "
+          f"{np.percentile(walls, 50):.2f} ms, p95 "
+          f"{np.percentile(walls, 95):.2f} ms over {len(walls)} updates; "
+          f"kernel builds after warmup {nvcc.total_builds() - builds0} "
+          f"[{smi}]", flush=True)
+    _check(nvcc.total_builds() == builds0
+           and sess.report().retraces_post_warmup == 0,
+           "a kernel was built after the walk session's warmup")
+    for r in df + [nd]:
+        _check(0 < r.regenerated_walks <= r.touched_walks
+               and r.regenerated_walks < r.total_walks == nr,
+               f"an update was not delta-localized: {r.regenerated_walks} "
+               f"regenerated, {r.touched_walks} touched")
+
+    # -- incremental equals full; the estimate against the oracle -----------
+    fresh = we.WalkState(sess.hg, R=WALK_R, L=WALK_L, seed=0,
+                         device="cuda")
+    _check(torch.equal(fresh.walks, sess.walks.walks)
+           and torch.equal(fresh.counts, sess.walks.counts),
+           "the updated walks differ from a fresh store on the final graph")
+    del fresh
+    torch.cuda.empty_cache()
+    est = sess.ranks
+    l1 = float(np.abs(est - ref[:n]).sum())
+    visits = sess.walks.total_steps / n
+    print(f"walk estimate: L1 {l1:.4f} to phase 3's oracle ({visits:.1f} "
+          f"visits a vertex); incremental walks and counts equal a fresh "
+          f"store on the final graph [{smi}]", flush=True)
+    _check(bool(np.isfinite(est).all()) and est.shape == (n,),
+           "the walk estimate is not finite or of the wrong shape")
+    _check(l1 < WALK_L1_BOUND, f"walk estimate L1 {l1} >= {WALK_L1_BOUND}")
+
+    # -- a delete and reinsert restores the walks -----------------------------
+    w0, c0 = sess.walks.walks.clone(), sess.walks.counts.clone()
+    churn = sess.hg.edges[np.random.default_rng(15).choice(
+        sess.hg.m, CHURN_EDGES, replace=False)]
+    none = np.zeros((0, 2), np.int64)
+    cut = sess.update(churn, none)
+    moved = not torch.equal(w0, sess.walks.walks)
+    back = sess.update(none, churn)
+    _check(moved and torch.equal(w0, sess.walks.walks)
+           and torch.equal(c0, sess.walks.counts),
+           "a delete and reinsert did not restore the walks exactly")
+    print(f"walk churn: {CHURN_EDGES} edges deleted ({cut.regenerated_walks}"
+          f" walks regenerated) and reinserted ({back.regenerated_walks}): "
+          "walks and counts restored exactly", flush=True)
+    del w0, c0
+
+    # -- ppr_query against a numpy fold of the seeds' rows -------------------
+    ppr_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, ids = sess.ppr_query(PPR_SEEDS, PPR_K)
+        ppr_s.append(time.perf_counter() - t0)
+    seed_rows = (np.asarray(PPR_SEEDS)[:, None] * WALK_R
+                 + np.arange(WALK_R)[None, :]).reshape(-1)
+    host_rows = sess.walks.walks[torch.as_tensor(
+        seed_rows, device="cuda")].cpu().numpy()
+    nv, ni = _numpy_ppr(host_rows, n, len(PPR_SEEDS), PPR_K)
+    _check(np.array_equal(vals, nv) and np.array_equal(ids, ni),
+           "ppr_query differs from the numpy fold of the seeds' walks")
+    print(f"ppr_query({list(PPR_SEEDS)}, k={PPR_K}): median "
+          f"{np.median(ppr_s) * 1e3:.2f} ms wall; top ids {ids.tolist()} "
+          f"equal the numpy fold [{smi}]", flush=True)
+
+    # -- save and restore -----------------------------------------------------
+    store = STORE_ROOT / "walk"
+    shutil.rmtree(store, ignore_errors=True)
+    sess.save(str(store))
+    t0 = time.perf_counter()
+    rest = PageRankSession.restore(str(store), device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    _check(torch.equal(rest.walks.walks, sess.walks.walks)
+           and torch.equal(rest.walks.counts, sess.walks.counts),
+           "the restored walks differ from the saved session's")
+    print(f"walk save + restore: restore {t_restore:.2f} s, walks and "
+          f"counts equal [{smi}]", flush=True)
+    rest.close()
+    sess.close()
+    del rest, sess
+    shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- a one-slot walk service ------------------------------------------------
+    svc = PageRankService([hg], config=cfg, device="cuda")
+    for i, (dels, ins) in enumerate(batches):
+        svc.submit(0, dels, ins)
+        while svc.step():
+            pass
+        r = svc.ppr_query(0, PPR_SEEDS, PPR_K)
+        at = svc._snapshots[0].sess.batch_index
+        _check(r.degraded and np.array_equal(r.values, lone[at][0])
+               and np.array_equal(r.vertices, lone[at][1]),
+               f"the service's ppr_query after batch {i} differs from the "
+               f"lone session's at batch index {at}")
+    torch.cuda.synchronize()
+    with svc._slot_locks[0]:
+        t0 = time.perf_counter()
+        svc._refresh_snapshot(0)
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+    view_bytes = svc._snapshots[0].sess.nbytes
+    rep = svc.report()
+    print(f"walk service: {rep['requests_done']} requests, every degraded "
+          f"ppr_query equal to the lone session's at its view's batch "
+          f"index; read-view refresh {refresh_ms:.2f} ms for {view_bytes} "
+          f"bytes; query p50 {rep['queries']['p50_ms']} ms [{smi}]",
+          flush=True)
+    svc.stop()
+    svc.sessions[0].close()
+    del svc
+    torch.cuda.empty_cache()
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches,
+                "blocked_sweep": bws.blocked_sweep_cuda.launches,
+                "walk_regen": wk.walk_regen_cuda.launches,
+                "walk_touch": wk.walk_touch_cuda.launches}
+    print(f"launches on the walk path: {launches}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    _check(launches["walk_regen"] > 0 and launches["walk_touch"] > 0,
+           f"the walk path missed a kernel: {launches}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2821,6 +3255,7 @@ def main() -> None:
     from repro_torch.kernels.block_spmv import block_spmv as bsk
     from repro_torch.kernels.block_spmv import ops
     from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    from repro_torch.kernels.walk import walk as wk
 
     t_start = time.perf_counter()
     # -- phase 1: device and build -----------------------------------------
@@ -2836,9 +3271,10 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:   # one nvcc each
-        list(pool.map(lambda lib: lib(), (bsk.library, bws.library)))
-    print(f"kernel builds + loads (block_spmv, blocked_sweep, in parallel): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+        list(pool.map(lambda lib: lib(), (bsk.library, bws.library,
+                                          wk.library)))
+    print(f"kernel builds + loads (block_spmv, blocked_sweep, walk, in "
+          f"parallel): {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- phase 2: kernel parity ---------------------------------------------
     rng = np.random.default_rng(2024)
@@ -2997,13 +3433,18 @@ def main() -> None:
     # -- phase 13: serving, after phase 12's sessions closed ----------------
     serve_launches = _serving_phase(bsk, hg, batches, nd_batch, p3, smi)
     torch.cuda.empty_cache()
+
+    # -- phase 14: the walk engine and PPR, same graph and batches ----------
+    walk_launches, walk_rows = _walk_phase(bsk, bws, hg, batches, nd_batch,
+                                           ref, smi)
     for row in table:
         row["launches"] = sum(
             path[row["name"]] for path in (
                 launches, push_launches, var_launches, blk_launches,
                 dur_launches, tier_launches, tpush_launches,
-                integ_launches, serve_launches))
+                integ_launches, serve_launches, walk_launches))
     table.append(sweep_row)
+    table.extend(walk_rows)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in table]}))

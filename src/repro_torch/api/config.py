@@ -26,8 +26,10 @@ Two fields mean less here than in the reference:
 
 * ``engine`` is ``"pallas"`` (the fused frontier engine, whose tile SpMV is
   the hand-written CUDA kernel on the card), ``"blocked"`` (in-order
-  Gauss–Seidel sweeps on the hand-written sweep kernel) or ``"dense"`` (the
-  oracle; its LF mode is the blocked engine);
+  Gauss–Seidel sweeps on the hand-written sweep kernel), ``"dense"`` (the
+  oracle; its LF mode is the blocked engine) or ``"walk"`` (the Monte Carlo
+  walk engine, the only one that takes the walk fields and serves
+  personalized reads, on the hand-written walk kernels);
 * ``backend`` accepts only ``None``: the tensors' device picks the kernel
   (CUDA) or its plain version (CPU), and no setting can put the plain
   version on the card.
@@ -55,11 +57,9 @@ PARTITIONERS = ("contiguous", "hash", "bfs_blocks")
 SHED_POLICIES = ("reject", "drop_oldest")
 # ROADMAP queue-A items that bring the values this slice rejects
 _LATER = {
-    "engine:walk": "A 13 (walk engine / PPR)",
     "engine:distributed": "A 14 (sharded topology)",
     "topology:sharded": "A 14 (sharded topology)",
     "fault_domain": "A 14 (sharded topology and the shard domain)",
-    "walk": "A 13 (walk engine / PPR)",
 }
 
 
@@ -67,8 +67,9 @@ def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
         "the port runs the single-device session (pallas engine with the "
-        "pull or push driver, tiered or not; blocked and dense engines; the "
-        "thread, process and corruption fault domains; integrity=)")
+        "pull or push driver, tiered or not; blocked, dense and walk "
+        "engines; the thread, process and corruption fault domains; "
+        "integrity=)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,7 +255,23 @@ class EngineConfig:
                     f"{type(v).__name__} ({v!r})")
             if v < lo:
                 raise ValueError(f"{name}={v} must be >= {lo}")
-            raise _later(f"{name}=", "walk")
+        # capability gate: personalization fields only reach engines that
+        # declare "ppr"; everything else rejects them at construction
+        eng = registry.resolve(eng_name)
+        registry.reject_personalization(
+            eng, {name: getattr(self, name)
+                  for name in ("walks_per_vertex", "walk_length",
+                               "walk_seed")})
+        if "ppr" in registry.supports_of(eng):
+            if self.faults is not None:
+                raise ValueError(
+                    f"engine {eng.name!r} is sweep-free and hosts no "
+                    "thread fault domain; faults must be None")
+            if self.integrity is not None:
+                raise ValueError(
+                    "integrity checks instrument the stream-mode "
+                    f"pull-matrix state; engine {eng.name!r} does not "
+                    "host them (integrity must be None)")
 
     # -- resolution helpers --------------------------------------------------
     @property
@@ -271,6 +288,28 @@ class EngineConfig:
     def resolved_dtype(self) -> torch.dtype:
         return (torch.float64 if self.dtype is None
                 else as_torch_dtype(self.dtype))
+
+    @property
+    def resolved_walks_per_vertex(self) -> int:
+        """Walk-engine ``R`` after default resolution."""
+        from repro_torch.core import walk_engine
+        return int(self.walks_per_vertex
+                   if self.walks_per_vertex is not None
+                   else walk_engine.DEFAULT_WALKS_PER_VERTEX)
+
+    @property
+    def resolved_walk_length(self) -> int:
+        """Walk-engine ``L`` after default resolution."""
+        from repro_torch.core import walk_engine
+        return int(self.walk_length if self.walk_length is not None
+                   else walk_engine.DEFAULT_WALK_LENGTH)
+
+    @property
+    def resolved_walk_seed(self) -> int:
+        """Walk-store base seed after default resolution."""
+        from repro_torch.core import walk_engine
+        return int(self.walk_seed if self.walk_seed is not None
+                   else walk_engine.DEFAULT_WALK_SEED)
 
     # -- strict construction -------------------------------------------------
     @classmethod

@@ -2,13 +2,13 @@
 (ports ``src/repro/api/registry.py``).
 
 Each core engine module owns its adapter (``as_engine()`` in
-:mod:`repro_torch.core.blocked`, :mod:`repro_torch.core.pagerank` (dense)
-and :mod:`repro_torch.core.pallas_engine`); the registry imports and
-registers them lazily on first resolve, so the core modules stay
-import-cycle-free.  External code can plug in more engines with
-:func:`register`.  The reference's ``walk`` and ``distributed`` engines are
-not ported yet: ``EngineConfig`` refuses them, naming the ROADMAP item that
-brings each.
+:mod:`repro_torch.core.blocked`, :mod:`repro_torch.core.pagerank` (dense),
+:mod:`repro_torch.core.pallas_engine` and :mod:`repro_torch.core.walk_engine`);
+the registry imports and registers them lazily on first resolve, so the
+core modules stay import-cycle-free.  External code can plug in more
+engines with :func:`register`.  The reference's ``distributed`` engine is
+not ported yet: ``EngineConfig`` refuses it, naming the ROADMAP item that
+brings it.
 
 ``resolve(None)`` applies :func:`default_engine` and validates a
 ``REPRO_ENGINE`` environment override *through the registry*.  The
@@ -50,7 +50,8 @@ class CapabilityError(ValueError):
 _REGISTRY: Dict[str, Engine] = {}
 _BUILTINS = ("repro_torch.core.blocked",         # blocked
              "repro_torch.core.pagerank",        # dense
-             "repro_torch.core.pallas_engine")   # pallas
+             "repro_torch.core.pallas_engine",   # pallas
+             "repro_torch.core.walk_engine")     # walk
 _builtins_loaded = False
 
 
@@ -131,14 +132,15 @@ def fault_domains_of(engine: Engine) -> Tuple[str, ...]:
 def supports_of(engine: Engine) -> frozenset:
     """Optional capabilities an engine declares beyond the core
     snapshot-level solve (a ``supports`` class attribute).  The only one is
-    ``"ppr"`` (the walk engine's, ROADMAP item A 13)."""
+    ``"ppr"`` (the walk engine's); ``EngineConfig`` and the session read
+    it."""
     return frozenset(getattr(engine, "supports", ()))
 
 
 def reject_personalization(engine: Engine, fields: dict) -> None:
-    """Config-time guard: engines without the ``"ppr"`` capability reject
-    the walk/personalization fields (``fields`` maps field name →
-    configured value; ``None`` = unset)."""
+    """Config-time guard (``EngineConfig`` calls it): engines without the
+    ``"ppr"`` capability reject the walk/personalization fields (``fields``
+    maps field name → configured value; ``None`` = unset)."""
     if "ppr" in supports_of(engine):
         return
     set_fields = sorted(k for k, v in fields.items() if v is not None)

@@ -18,9 +18,9 @@ the reference's (:class:`~repro_torch.api.config.ServingConfig`):
 * **deadlines / retry / backoff** — a request queued past its deadline is
   shed, one finishing late counts as a miss; transient update failures
   retry with exponential backoff;
-* **degraded-mode reads** — :meth:`query` / :meth:`top_k` serve from a
-  per-slot read replica, refreshed after every dispatch, and report their
-  staleness;
+* **degraded-mode reads** — :meth:`query`, :meth:`top_k` and
+  :meth:`ppr_query` serve from a per-slot read replica, refreshed after
+  every dispatch, and report their staleness;
 * **watchdog** — dispatches heartbeat
   (:class:`~repro_torch.core.fault_domain.SlotHeartbeat`); a dead or stuck
   slot is failed over from its durable store and its queue drains to the
@@ -32,8 +32,9 @@ the reference's (:class:`~repro_torch.api.config.ServingConfig`):
 Where the port differs:
 
 * The read replica is a :class:`~repro_torch.api.session.ReadView` (clones
-  of the ranks and the valid mask, the batch index), not a ``fork()``: the
-  port's fork copies every tensor an update writes.
+  of the ranks and the valid mask, the batch index, and a walk slot's walk
+  buffer), not a ``fork()``: the port's fork copies every tensor an update
+  writes.
 * On a card each slot owns one ``torch.cuda.Stream``, made at construction
   and kept across failovers.  Every device operation on the slot's session
   runs on it: the open, warmup, dispatches, the scrubber's ``verify()``,
@@ -44,9 +45,8 @@ Where the port differs:
   its batch index always belong together; the read path takes a new view
   only when the slot is idle, and re-dates a view that is still current
   when it is not.
-* ``ppr_query`` raises ``NotImplementedError`` (ROADMAP A 13), and the
-  per-session report rows omit ``bucket_retraces_post_warmup``: the port
-  keeps no jit caches; ``retraces_post_warmup`` counts kernel builds.
+* The per-session report rows omit ``bucket_retraces_post_warmup``: the
+  port keeps no jit caches; ``retraces_post_warmup`` counts kernel builds.
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.api.config import EngineConfig, ServingConfig, _later
+from repro_torch.api.config import EngineConfig, ServingConfig
 from repro_torch.api.session import (PageRankSession, ReadView,
                                      StreamBatchResult)
 from repro_torch.core import fault_domain as fd
@@ -969,9 +969,13 @@ class PageRankService:
         return self._read(stream, lambda s: tuple(s.top_k(k)))
 
     def ppr_query(self, stream: int, seeds, k: int) -> ReadResult:
-        """Personalized-PageRank top-k of the reference's serving surface:
-        the walk engine it reads is not ported yet."""
-        raise _later("PageRankService.ppr_query", "walk")
+        """(values, vertex ids) of the k highest **personalized** PageRank
+        estimates for the caller's seed set — the per-user ranking read —
+        served degraded-mode like :meth:`top_k` (a walk slot's read view
+        holds a clone of its walk buffer).  Streams whose engine lacks the
+        ``"ppr"`` capability raise
+        :class:`~repro_torch.api.registry.CapabilityError`."""
+        return self._read(stream, lambda s: tuple(s.ppr_query(seeds, k)))
 
     # -- reporting -----------------------------------------------------------
     @staticmethod

@@ -17,7 +17,8 @@ corruption fault domain (``verify`` with its repair ladder,
 ``report().integrity``), the hooks a
 :class:`~repro_torch.api.service.PageRankService` uses (the ``_service``
 backref ``close`` unregisters through, and :class:`ReadView`, the
-ranks-only copy degraded reads are served from)::
+ranks-only copy degraded reads are served from), and the walk mode
+(``_init_walk``, ``_update_walk``, ``_recompute_walk``, ``ppr_query``)::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -41,7 +42,12 @@ ranks-only copy degraded reads are served from)::
     checked.inject_corruption("tile", seed=3)   # silent damage
     checked.verify(repair=True)     # detect, then frontier/rebuild/restore
 
-Two modes, picked at construction:
+    walks = PageRankSession.from_graph(
+        hg, config=EngineConfig(engine="walk", walks_per_vertex=16))
+    walks.update(dels, ins)         # regenerate the walks the batch touches
+    walks.ppr_query([3, 17], k=10)  # personalized top-k from the seeds' walks
+
+Three modes, picked at construction:
 
 * **stream mode** (``from_graph`` + the pallas engine): the graph is
   snapshotted once; the capacity-padded pull matrix and the per-vertex /
@@ -59,6 +65,14 @@ Two modes, picked at construction:
   :mod:`repro_torch.api.registry`.  The legacy
   ``static/nd/dt/df_pagerank`` functions of
   :mod:`repro_torch.core.pagerank` are shims over exactly this path.
+* **walk mode** (``EngineConfig(engine="walk")``): no sweeps; the session
+  owns a :class:`~repro_torch.core.walk_engine.WalkState` (R walk segments
+  per vertex on the device), regenerates only the walks a batch touches
+  (``walk_touch`` finds them, ``walk_regen`` rebuilds them), serves the
+  global estimate as its ranks and ``ppr_query`` from the seeds' walks.
+  Its walks, counts and reads equal the reference's bit for bit; a WAL
+  replay regenerates them exactly.  It hosts the process fault domain
+  only: ``verify`` and ``inject_corruption`` raise.
 
 One ordering differs from the reference, because the port patches the tile
 pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
@@ -125,6 +139,7 @@ from repro_torch.core import integrity as ig
 from repro_torch.core import pallas_engine as pe
 from repro_torch.core import push_engine as pshe
 from repro_torch.core import tiering
+from repro_torch.core import walk_engine as we
 from repro_torch.core.blocked import SweepStats
 from repro_torch.core.delta import signed_edge_delta, validate_edge_batch
 from repro_torch.core.graph import (GraphSnapshot, HostGraph,
@@ -272,9 +287,29 @@ def _top_k(R: torch.Tensor, valid: torch.Tensor, k: int
     return vals[:k].cpu().numpy(), idx[:k].cpu().numpy()
 
 
+def _ppr_args(seeds, k, n: int) -> Tuple[np.ndarray, int]:
+    """Validated ``(seeds, k)`` of a ``ppr_query`` (the reference's
+    errors)."""
+    seeds = _vertex_ids(seeds, n)
+    if seeds.size == 0:
+        raise ValueError("ppr_query needs at least one seed vertex "
+                         "(got an empty seed set)")
+    return seeds, _top_k_count(k, n)
+
+
+def _no_ppr(engine) -> registry.CapabilityError:
+    return registry.CapabilityError(
+        f"ppr_query needs an engine declaring the 'ppr' capability; "
+        f"engine {engine.name!r} declares supports="
+        f"{sorted(registry.supports_of(engine))} — open the "
+        "session with EngineConfig(engine='walk')")
+
+
 class ReadView:
     """What a degraded read needs of a session and nothing more: clones of
-    the ranks and the valid mask, ``n``, and the batch index they hold.
+    the ranks and the valid mask, ``n``, and the batch index they hold, and
+    for a walk session a clone of its walk buffer (``ppr_query``; 3.22 GB
+    at n = 1M, R = 16, L = 48).
 
     The reference serves degraded reads from a ``fork()``, which shares
     JAX's immutable arrays.  The port's fork copies every tensor an update
@@ -284,10 +319,11 @@ class ReadView:
     ranks in place, a ``rank`` corruption of the live copy, or ``close()``
     leave it as it was.  On a card the clones are taken on the caller's
     current stream and ``ready`` is recorded after them; a read on another
-    stream waits on it before it gathers.  ``query`` and ``top_k`` give the
-    session's values, ids, tie order and errors."""
+    stream waits on it before it gathers.  ``query``, ``top_k`` and
+    ``ppr_query`` give the session's values, ids, tie order and errors."""
 
-    __slots__ = ("R", "valid", "n", "batch_index", "device", "ready")
+    __slots__ = ("R", "valid", "n", "batch_index", "device", "ready",
+                 "engine", "walks", "_walk_args")
 
     def __init__(self, sess: "PageRankSession"):
         self.R = sess.R.clone()
@@ -295,6 +331,14 @@ class ReadView:
         self.n = sess.n
         self.batch_index = sess._batch_index
         self.device = sess.device
+        self.engine = sess.engine
+        self.walks = None
+        self._walk_args = None
+        if sess._walk:
+            ws = sess.walks
+            self.walks = ws.walks.clone()
+            self._walk_args = dict(n=ws.n, R=ws.R, alpha32=ws._alpha32,
+                                   dtype=ws.dtype)
         self.ready = None
         if self.R.is_cuda:
             self.ready = torch.cuda.Event()
@@ -302,7 +346,8 @@ class ReadView:
 
     @property
     def nbytes(self) -> int:
-        return self.R.nbytes + self.valid.nbytes
+        return (self.R.nbytes + self.valid.nbytes
+                + (self.walks.nbytes if self.walks is not None else 0))
 
     def _wait(self) -> None:
         if self.ready is not None:
@@ -318,6 +363,16 @@ class ReadView:
         self._wait()
         return _top_k(self.R, self.valid, k)
 
+    def ppr_query(self, seeds, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self.walks is None:
+            raise _no_ppr(self.engine)
+        seeds, k = _ppr_args(seeds, k, self.n)
+        self._wait()
+        vals = we.ppr_values(self.walks, torch.as_tensor(
+            seeds, device=self.walks.device), **self._walk_args)
+        v, i = we.top_k(vals, k)
+        return v.cpu().numpy(), i.cpu().numpy()
+
 
 @dataclasses.dataclass
 class StreamBatchResult:
@@ -331,6 +386,10 @@ class StreamBatchResult:
     # -- push-driver accounting (None on the pull driver) --------------------
     residual_mass: Optional[float] = None     # ‖r‖₁ at drive exit
     pushed_blocks: Optional[int] = None       # source blocks pushed
+    # -- walk-mode localization accounting (None on sweep engines) ----------
+    regenerated_walks: Optional[int] = None   # walks rebuilt this batch
+    touched_walks: Optional[int] = None       # touched-walk mass (bound)
+    total_walks: Optional[int] = None         # n * R (the "global" yardstick)
 
     @property
     def converged(self) -> bool:
@@ -405,6 +464,10 @@ class PageRankSession:
             config.faults, config.fault_domain)
         self._stream = (self.engine_name == "pallas" and hg is not None
                         and g is None)
+        # walk mode: an engine declaring "ppr" (the walk engine) keeps a
+        # WalkState and serves personalized reads
+        self._walk = "ppr" in registry.supports_of(self.engine)
+        self.walks: Optional[we.WalkState] = None
         # tiered storage: host-truth tile pool + a budget-bounded device hot
         # slab; stream mode only
         self._tiered = config.device_budget_bytes is not None
@@ -485,7 +548,9 @@ class PageRankSession:
         # something writes in place (the drift check would read 0)
         self._r_verified: Optional[torch.Tensor] = None
         self._hg_digest: Optional[int] = None
-        if self._stream:
+        if self._walk:
+            self._init_walk(g)
+        elif self._stream:
             self._init_stream(r0)
         else:
             self._init_snapshot(g, r0)
@@ -502,7 +567,8 @@ class PageRankSession:
                    device="cuda", store_dir: Optional[str] = None
                    ) -> "PageRankSession":
         """Open a session over a host graph on ``device``.  With the pallas
-        engine this is stream mode; other engines run snapshot mode.
+        engine this is stream mode, with the walk engine walk mode; other
+        engines run snapshot mode.
         ``r0=None`` runs one initial solve (``variant="static"``
         semantics) so the session is born serving.  ``store_dir`` is the
         store a ``config.durability="wal"`` session checkpoints and logs
@@ -626,6 +692,33 @@ class PageRankSession:
         else:
             # keep the caller's dtype: the engines compute in R0's dtype
             self.R = pad_ranks(g, r0)
+
+    def _new_walks(self) -> we.WalkState:
+        cfg = self.config
+        return we.WalkState(
+            self.hg, R=cfg.resolved_walks_per_vertex,
+            L=cfg.resolved_walk_length, seed=cfg.resolved_walk_seed,
+            alpha=cfg.alpha, dtype=self._dtype, device=self.device)
+
+    def _init_walk(self, g: Optional[GraphSnapshot]) -> None:
+        """Walk mode (``engine="walk"``): no sweeps and no pull operands —
+        the session owns a :class:`~repro_torch.core.walk_engine.WalkState`
+        (R walk segments per vertex on the device) and every rank read
+        derives from its visit counters.  A caller's ``r0`` (and a
+        restore's stored ranks) is ignored: regeneration is deterministic in
+        (graph, seed), so a WAL replay reproduces the walks and counters
+        exactly.  ``from_snapshot`` without ``hg=`` recovers the host edges
+        without the snapshot's self-loops (the walks re-add them by
+        sampling)."""
+        if self.hg is None:
+            self.hg = we.host_graph_of(g)
+        self.g = None
+        self.inc = None
+        self.n = self.n_pad = self.hg.n
+        self.block_size, self.n_rb = self.config.block_size, 0
+        self.valid = torch.ones(self.n, dtype=torch.bool, device=self.device)
+        self.walks = self._new_walks()
+        self.R = self.walks.pagerank()
 
     # -- the snapshot-level solve --------------------------------------------
     def _converge(self, R0, affected0, *, expand: bool,
@@ -1136,6 +1229,31 @@ class PageRankSession:
             wall_time_s=time.perf_counter() - t0, batch_edges=raw,
             driver_retraces=nvcc.total_builds() - builds0)
 
+    def _update_walk(self, deletions, insertions) -> StreamBatchResult:
+        """Walk-mode step: patch the adjacency slabs and regenerate only the
+        walks that visit a touched vertex (``walk_touch`` finds them,
+        ``walk_regen`` rebuilds them).  Every variant takes this path: walk
+        invalidation is the frontier, as in the reference."""
+        t0 = time.perf_counter()
+        builds0 = nvcc.total_builds()
+        syncs0 = self.walks.host_syncs
+        dels_eff, ins_eff = effective_batch(self.hg, deletions, insertions)
+        self.hg = self.hg.apply_batch(deletions, insertions)
+        wstats = self.walks.apply_batch(dels_eff, ins_eff)
+        self.R = self.walks.pagerank()
+        raw = (np.asarray(deletions).reshape(-1, 2).shape[0]
+               + np.asarray(insertions).reshape(-1, 2).shape[0])
+        stats = SweepStats(sweeps=1, iterations=1, blocks_processed=0,
+                           edges_processed=wstats.steps, converged=True)
+        return StreamBatchResult(
+            ranks=self.R, stats=stats,
+            wall_time_s=time.perf_counter() - t0, batch_edges=raw,
+            driver_retraces=nvcc.total_builds() - builds0,
+            host_syncs=self.walks.host_syncs - syncs0,
+            regenerated_walks=wstats.regenerated_walks,
+            touched_walks=wstats.touched_walk_mass,
+            total_walks=wstats.total_walks)
+
     # -- updates -------------------------------------------------------------
     def update(self, deletions, insertions, *, variant: str = "df"
                ) -> StreamBatchResult:
@@ -1178,7 +1296,9 @@ class PageRankSession:
                                          np.int64).reshape(-1, 2),
                     insertions=np.asarray(insertions,
                                           np.int64).reshape(-1, 2))
-            if self._stream:
+            if self._walk:
+                res = self._update_walk(deletions, insertions)
+            elif self._stream:
                 res = self._update_stream(deletions, insertions, variant)
             else:
                 res = self._update_snapshot(deletions, insertions, variant)
@@ -1228,7 +1348,29 @@ class PageRankSession:
             self._checkpoint_now()
         return res
 
+    def _recompute_walk(self, variant: str) -> PagerankResult:
+        """Walk-mode re-solve: regenerate EVERY walk from the current graph
+        (``static``/``nd``, both cold: there is no warm iterate).  The
+        marking replays (``dt``/``df``) have no walk analogue and raise, as
+        in the reference."""
+        if variant not in ("static", "nd"):
+            raise ValueError(
+                f"recompute({variant!r}) replays a sweep-engine affected "
+                "marking, which the walk engine does not have — walk "
+                "sessions regenerate globally via variant='static'/'nd' "
+                "(per-delta localization happens inside update())")
+        t0 = time.perf_counter()
+        self.walks = self._new_walks()
+        self.R = self.walks.pagerank()
+        stats = SweepStats(sweeps=1, iterations=1,
+                           edges_processed=self.walks.total_steps,
+                           converged=True)
+        return PagerankResult(ranks=self.R, stats=stats,
+                              wall_time_s=time.perf_counter() - t0)
+
     def _recompute(self, variant: str) -> PagerankResult:
+        if self._walk:
+            return self._recompute_walk(variant)
         if variant in ("df", "dt") and self._push:
             raise ValueError(
                 f"recompute({variant!r}) replays the pull driver's "
@@ -1401,6 +1543,7 @@ class PageRankSession:
         escalates on failure and records a
         ``RecoveryRecord(domain="corruption")``."""
         self._ensure_open()
+        self._no_walk("verify()")
         t0 = time.perf_counter()
         icfg = self._integrity_cfg()
         if repair is None:
@@ -1565,6 +1708,7 @@ class PageRankSession:
         fault on the session's corruption domain instead, for the next
         :meth:`update` to apply right before its batch."""
         self._ensure_open()
+        self._no_walk("inject_corruption()")
         if isinstance(kind, fault_domain.CorruptionFault):
             fault = kind
         else:
@@ -1699,6 +1843,27 @@ class PageRankSession:
         self._queries += k
         return out
 
+    def ppr_query(self, seeds, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(values, vertex ids) of the k highest **personalized** PageRank
+        estimates for a uniform restart over ``seeds`` (ties lower id
+        first): one device gather over the seeds' walks and a top-k, no
+        regeneration.  Engines without the ``"ppr"`` capability raise
+        :class:`~repro_torch.api.registry.CapabilityError`."""
+        self._ensure_open()
+        if not self._walk:
+            raise _no_ppr(self.engine)
+        seeds, k = _ppr_args(seeds, k, self.n)
+        vals, idx = self.walks.ppr_top_k(seeds, k)
+        self._queries += k
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def _no_walk(self, what: str) -> None:
+        if self._walk:
+            raise ValueError(
+                f"{what} checks the sweep engines' state; the walk engine "
+                "hosts no integrity checks (its only fault domain is "
+                "'process')")
+
     def _read_view(self) -> ReadView:
         """The ranks-only copy a service serves degraded reads from."""
         self._ensure_open()
@@ -1745,7 +1910,8 @@ class PageRankSession:
                      "_rb_out", "_bmat", "_fault_tables", "_residual",
                      "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev",
                      "store", "_process_domain", "pool", "hot",
-                     "_deferred_rb", "_r_verified", "_corruption_faults"):
+                     "_deferred_rb", "_r_verified", "_corruption_faults",
+                     "walks"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -1906,6 +2072,8 @@ class PageRankSession:
             else:
                 new.inc = IncrementalPullMatrix(self.inc.mat.clone(), aux)
             new._out_deg_host = self._out_deg_host.copy()
+        if self._walk:
+            new.walks = self.walks.fork()
         return new
 
     # -- warmup / reporting --------------------------------------------------
@@ -1915,9 +2083,13 @@ class PageRankSession:
         session a residual scatter of one zero (its result dropped), and an
         empty-batch step — so the kernel library is built and loaded and the
         allocator holds the step's buffers before the first real update.
-        Snapshot-mode sessions are already warm from their initial solve."""
+        A walk session regenerates its inert scratch row instead (the walk
+        kernels' build).  Snapshot-mode sessions are already warm from
+        their initial solve."""
         self._ensure_open()
-        if self._stream:
+        if self._walk:
+            self.walks.warmup()
+        elif self._stream:
             z = np.zeros(1, np.int64)
             if self._tiered:
                 # the host-tier delta path and the invalidate → re-admit
@@ -2000,6 +2172,9 @@ class PageRankSession:
         """Per-component device-resident bytes (the memory audit)."""
         if self._closed:
             return None
+        if self._walk:
+            return {"ranks": self.R.nbytes + self.valid.nbytes,
+                    "walk_buffers": self.walks.nbytes}
         if self.inc is None:
             g = self.g
             return {

@@ -2,7 +2,9 @@
 
 ``repro_torch.api.__all__`` is ``tests/test_api_surface.py::EXPECTED_API``
 minus the names of items not ported yet, each tagged with the ROADMAP item
-that brings it; ``repro_torch.core.__all__`` is ``repro.core.__all__``.
+that brings it, and so are the registered builtin engines and the public
+members of the session and the service; the ``EngineConfig`` fields are
+the reference's; ``repro_torch.core.__all__`` is ``repro.core.__all__``.
 Importing the public surface loads no JAX and nothing of ``repro``, and the
 hint of the legacy functions' ``DeprecationWarning`` resolves.
 """
@@ -27,14 +29,46 @@ ROOT = Path(__file__).resolve().parents[1]
 UNPORTED = {
     "ShardFault": "A 14", "ShardFaultDomain": "A 14",
 }
+# the reference's builtin engines and public session and service members of
+# later slices, tagged the same way (the walk engine, ``ppr_query`` and the
+# walk fields came with A 13)
+UNPORTED_ENGINES = {"distributed": "A 14"}
+UNPORTED_MEMBERS = {"inject_shard_fault": "A 14"}
 
 
-def _expected_api() -> set:
+def _reference_surface():
     spec = importlib.util.spec_from_file_location(
         "_reference_api_surface", ROOT / "tests" / "test_api_surface.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return set(mod.EXPECTED_API)
+    return mod
+
+
+def _expected_api() -> set:
+    return set(_reference_surface().EXPECTED_API)
+
+
+def test_engines_fields_and_members_are_the_reference_minus_unported():
+    import dataclasses
+
+    from repro.api import PageRankService as JService
+    from repro.api import PageRankSession as JSession
+    ref = _reference_surface()
+    engines = set(ref.EXPECTED_BUILTIN_ENGINES) - set(UNPORTED_ENGINES)
+    assert set(tapi.registry.names()) == engines
+    assert "walk" in engines
+    assert {f.name for f in dataclasses.fields(tapi.EngineConfig)} == \
+        set(ref.EXPECTED_CONFIG_FIELDS)
+    for jcls, tcls in ((JSession, tapi.PageRankSession),
+                       (JService, tapi.PageRankService)):
+        names = {n for n in dir(jcls) if not n.startswith("_")}
+        missing = {n for n in names if not hasattr(tcls, n)}
+        assert missing == set(UNPORTED_MEMBERS) & names, missing
+    assert callable(tapi.PageRankSession.ppr_query)
+    assert callable(tapi.PageRankService.ppr_query)
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for item in {**UNPORTED_ENGINES, **UNPORTED_MEMBERS}.values():
+        assert re.search(rf"\*\*{item}: ", roadmap), item
 
 
 def test_api_all_is_the_reference_minus_unported_items():

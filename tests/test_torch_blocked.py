@@ -643,7 +643,8 @@ def test_non_pallas_engines_reject_tile_operands(sdyn):
 def test_unknown_engine_error_lists_registered():
     with pytest.raises(ValueError, match="blocked.*dense.*pallas"):
         registry.resolve("not-an-engine")
-    assert registry.names() == ("blocked", "dense", "pallas")
+    # the walk engine registers since A 13
+    assert registry.names() == ("blocked", "dense", "pallas", "walk")
     assert registry.default_engine() == "pallas"
     eng = registry.resolve("blocked")
     assert isinstance(eng, registry.Engine)

@@ -7,8 +7,11 @@ snapshot mode, the dense engine) on the card against the CPU, the blocked
 engine's Gauss–Seidel sweep kernel against its plain version (over the
 snapshot's CSR and over an ``EdgePager``'s slab, the paged sweep bit-equal
 to the unpaged one), tiered pull and push sessions (the kernels
-reading the packed hot slab) against the CPU, and the integrity check
-finding and healing a flipped entry of the index the kernels read.
+reading the packed hot slab) against the CPU, the integrity check
+finding and healing a flipped entry of the index the kernels read, and the
+walk kernels (``walk_regen``, ``walk_touch``) against their plain versions
+and a walk session on the card against the same session on the CPU (exact:
+the walks are integer and the draws counter-based).
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -1004,3 +1007,91 @@ def test_cuda_service_slots_on_streams_match_cpu(cuda_device):
         assert gpu.sessions[i].report().retraces_post_warmup == 0
     np.testing.assert_array_equal(np.asarray(gpu.query(0, [0, 1, 2])),
                                   gpu.sessions[0].query([0, 1, 2]))
+
+
+def _walk_pair(device, R=8, L=24, seed=3):
+    from repro_torch.core.walk_engine import WalkState
+    from repro_torch.graphs.generators import grid_road
+    hg = grid_road(48, seed=7)
+    return hg, (WalkState(hg, R=R, L=L, seed=seed, device="cpu"),
+                WalkState(hg, R=R, L=L, seed=seed, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,seed", [(8, 24, 3), (1, 2, 0),
+                                      (16, 48, 2 ** 32 + 5)])
+def test_cuda_walk_regen_matches_plain(cuda_device, R, L, seed):
+    """The full regeneration on the card equals the CPU's, and a partial
+    one (walks through a patched row) equals the plain version on the same
+    card operands: walks, counts and steps exact."""
+    from repro_torch.kernels.walk import walk as wk
+    hg, (cpu, gpu) = _walk_pair(cuda_device, R, L, seed)
+    torch.cuda.synchronize()
+    for name in ("walks", "counts", "adj", "deg"):
+        assert torch.equal(getattr(cpu, name), getattr(gpu, name).cpu())
+    wids = torch.arange(0, hg.n * R, 7, dtype=torch.int32,
+                        device=cuda_device)
+    adj = gpu.adj.clone()
+    adj[:, 0] = adj[:, 1].clamp(max=hg.n)
+    outs = []
+    for fn in (wk.walk_regen_cuda, wk.walk_regen_plain):
+        w, c = gpu.walks.clone(), gpu.counts.clone()
+        steps = fn(w, c, adj, gpu.deg, wids, R=R, alpha=gpu._alpha32,
+                   key=gpu._key)
+        outs.append((w, c, int(steps)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert outs[0][2] == outs[1][2] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_walk_touch_matches_plain(cuda_device):
+    from repro_torch.kernels.walk import walk as wk
+    hg, (_, gpu) = _walk_pair(cuda_device, R=16, L=48)
+    rng = np.random.default_rng(5)
+    for n_touched in (1, 40, 900):
+        tm = torch.zeros(hg.n + 1, dtype=torch.bool, device=cuda_device)
+        tm[torch.as_tensor(rng.integers(0, hg.n, n_touched),
+                           device=cuda_device)] = True
+        f1, m1 = wk.walk_touch_cuda(gpu.walks, tm, n_walks=hg.n * 16)
+        f2, m2 = wk.walk_touch_plain(gpu.walks, tm, n_walks=hg.n * 16)
+        torch.cuda.synchronize()
+        assert torch.equal(f1, f2) and int(m1) == int(m2) >= int(f1.sum())
+
+
+@pytest.mark.cuda
+def test_cuda_walk_session_matches_cpu(cuda_device):
+    """A walk session on the card takes the CPU session's batches: walks,
+    ranks, every update's walk fields and ``ppr_query`` equal; both kernels
+    launched and no build after warmup."""
+    from repro_torch.api import EngineConfig, PageRankSession
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import grid_road
+    from repro_torch.kernels.walk import walk as wk
+    hg = grid_road(48, seed=7)
+    cfg = EngineConfig(engine="walk", walks_per_vertex=8, walk_length=32)
+    cpu = PageRankSession.from_graph(hg, config=cfg, device="cpu")
+    gpu = PageRankSession.from_graph(hg, config=cfg, device=cuda_device)
+    gpu.warmup()
+    launches = (wk.walk_regen_cuda.launches, wk.walk_touch_cuda.launches)
+    cur = hg
+    for i in range(4):
+        d, ins = random_batch(cur, 2e-3, seed=70 + i)
+        a, b = cpu.update(d, ins), gpu.update(d, ins)
+        cur = cur.apply_batch(d, ins)
+        assert (a.regenerated_walks, a.touched_walks,
+                a.stats.edges_processed) == (b.regenerated_walks,
+                                             b.touched_walks,
+                                             b.stats.edges_processed)
+    assert torch.equal(cpu.walks.walks, gpu.walks.walks.cpu())
+    assert np.array_equal(cpu.ranks, gpu.ranks)
+    for seeds in ([0], [5, 100, 2000]):
+        for x, y in zip(cpu.ppr_query(seeds, 10), gpu.ppr_query(seeds, 10)):
+            assert np.array_equal(x, y)
+    assert wk.walk_regen_cuda.launches > launches[0]
+    assert wk.walk_touch_cuda.launches >= launches[1] + 4
+    assert gpu.report().retraces_post_warmup == 0
+    view = gpu._read_view()
+    assert np.array_equal(view.ppr_query([5], 10)[1],
+                          gpu.ppr_query([5], 10)[1])

@@ -19,7 +19,7 @@ port alone (``device="cpu"``: the kernels' plain versions).
 Port-only tests follow: ``ServingConfig``'s errors equal the reference's,
 the read view owns its storage and holds only ``R`` and ``valid``, a CPU
 slot fails over onto the CPU, the repair ladder's ``restore`` rung keeps
-the service's backref, and ``ppr_query`` names ROADMAP A 13.
+the service's backref, and a walk slot serves ``ppr_query``.
 """
 import time
 import warnings
@@ -890,11 +890,24 @@ def test_repair_restore_rung_keeps_the_service_backref(hgs, tmp_path):
 
 
 def test_ppr_query_names_a_13(hgs):
-    _, tg = hgs
-    svc = PageRankService([tg], config=EngineConfig(**_kw()), device=CPU,
-                          warmup=False)
-    with pytest.raises(NotImplementedError, match="A 13"):
-        svc.ppr_query(0, [0], 3)
+    """``ppr_query`` raised naming ROADMAP A 13 until the walk engine was
+    ported; a walk slot now serves it as the reference's does."""
+    jg, tg = hgs
+    kw = dict(engine="walk", walks_per_vertex=4, walk_length=16)
+    jsvc = JService([jg], config=JConfig(**kw))
+    svc = PageRankService([tg], config=EngineConfig(**kw), device=CPU)
+    try:
+        for s in (jsvc, svc):
+            s.submit(0, np.zeros((0, 2), np.int64), np.array([[0, 9]]))
+            while s.step():
+                pass
+        a, b = jsvc.ppr_query(0, [0, 3], 5), svc.ppr_query(0, [0, 3], 5)
+        assert b.degraded and b.lag_updates == 0
+        assert np.array_equal(a.values, b.values)
+        assert np.array_equal(a.vertices, b.vertices)
+    finally:
+        svc.stop()
+        jsvc.stop()
 
 
 def test_host_graphs_default_to_the_card():

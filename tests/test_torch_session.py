@@ -185,14 +185,46 @@ class _JProcessDomain(JFaultDomain):
     name = "process"
 
 
+def _walk_config_serves(kw: dict) -> None:
+    """A configuration of the walk axis opens and serves as the
+    reference's does: the walk fields on the default engine get the
+    capability refusal in both packages; with ``engine="walk"`` both open a
+    session whose update and ``ppr_query`` agree bit for bit."""
+    from repro.api import CapabilityError as JCapabilityError
+    from repro_torch.api import CapabilityError
+    if "engine" not in kw:
+        with pytest.raises(CapabilityError, match="'ppr' capability"):
+            TConfig(**kw)
+        with pytest.raises(JCapabilityError, match="'ppr' capability"):
+            JConfig(**kw)
+    kw = {**kw, "engine": "walk"}
+    jg = jgen.rmat(6, avg_degree=4, seed=3)
+    tg = THostGraph(jg.n, jg.edges)
+    js = JSession.from_graph(jg, config=JConfig(**kw))
+    ts = TSession.from_graph(tg, config=TConfig(**kw), device="cpu")
+    dels, ins = jdelta.random_batch(jg, 0.05, seed=5)
+    a, b = js.update(dels, ins), ts.update(dels, ins)
+    assert (a.regenerated_walks, a.touched_walks) == (b.regenerated_walks,
+                                                      b.touched_walks)
+    assert np.array_equal(np.asarray(a.ranks), b.ranks.numpy())
+    jv, ji = js.ppr_query([0, 5], 8)
+    tv, ti = ts.ppr_query([0, 5], 8)
+    assert np.array_equal(jv, tv) and np.array_equal(ji, ti)
+    js.close()
+    ts.close()
+
+
 @pytest.mark.parametrize("kw,item", [
     # a stream with a budget runs since A 10a (pull) and A 10b (push): the
     # cases with item None construct
     ({"driver": "push", "device_budget_bytes": 1 << 20}, None),
     ({"topology": "sharded"}, "A 14"),
-    ({"walks_per_vertex": 4}, "A 13"),
-    ({"walk_length": 8}, "A 13"),
-    ({"walk_seed": 1}, "A 13"),
+    # the walk engine and its fields run since A 13: the cases with item
+    # "walk" open a walk session that serves (ids kept from when they
+    # raised naming A 13)
+    pytest.param({"walks_per_vertex": 4}, "walk", id="kw2-A 13"),
+    pytest.param({"walk_length": 8}, "walk", id="kw3-A 13"),
+    pytest.param({"walk_seed": 1}, "walk", id="kw4-A 13"),
     # durability="wal" runs since A 9 and tiers under either driver since
     # A 10b
     ({"durability": "wal", "driver": "push", "device_budget_bytes": 1 << 20},
@@ -208,10 +240,13 @@ class _JProcessDomain(JFaultDomain):
     ({"engine": "pallas", "driver": "push", "device_budget_bytes": 1 << 20},
      None),
     ({"engine": "dense", "fault_domain": _ProcessDomain()}, None),
-    ({"engine": "walk"}, "A 13"),
+    pytest.param({"engine": "walk"}, "walk", id="kw10-A 13"),
     ({"engine": "distributed"}, "A 14"),
 ])
 def test_out_of_slice_config_raises(kw, item):
+    if item == "walk":
+        _walk_config_serves(kw)
+        return
     if item is None:
         # ported: the config constructs, as the reference's does (whose
         # default engine off the TPU is "blocked": name the pallas engine)

@@ -115,7 +115,8 @@ class TestRegistry:
     def test_unknown_engine_error_lists_registered(self):
         with pytest.raises(ValueError, match="dense.*pallas"):
             registry.resolve("not-an-engine")
-        assert registry.names() == ("blocked", "dense", "pallas")
+        # the walk engine registers since A 13
+        assert registry.names() == ("blocked", "dense", "pallas", "walk")
         assert registry.default_engine() == "pallas"
         assert registry.resolve(None).name == "pallas"
 
