@@ -176,15 +176,38 @@ Phases, each of which raises (non-zero exit) on any failed check:
    numpy fold of the seeds' rows (ties lower id first) and saves and
    restores bit for bit; a one-slot walk service takes the 8 batches and
    serves degraded ``ppr_query`` reads equal to the lone session's at the
-   view's batch index, its read view's refresh timed.
+   view's batch index, its read view's refresh timed;
+15. the sharded session (``EngineConfig(topology="sharded", n_shards=8)``,
+   8 logical shards on the card) on phase 3's graph and batches, with the
+   launch counters zeroed just before and read at the end: a contiguous
+   ``full``-exchange session opened cold (within 1e-8 of phase 3's
+   opening ranks; a ``recompute("static")`` repeats it bit for bit and
+   gives its sweeps), phase 3's 8 ``df`` batches (each within 1e-8 of
+   phase 3's ranks after the same batch, kernel #1 launched exactly 16
+   times a sweep and kernel #2 never), ``recompute("df")`` bit-equal to
+   the last update, the ``nd`` batch (within 1e-8 of phase 3's and its
+   oracle); one shard's matrix through kernel #1 (``sum`` ≤ 1e-12, ``or``
+   exact) against its plain version, timed beside its bound (launches not
+   counted); the same stream under the ``delta`` exchange (the session's
+   capacity, 1024), bit-equal to ``full`` with equal sweeps, and two
+   ``DistRuntime``s (``full``, and ``delta`` at capacity 4096) driven
+   through the same batches on the contiguous relabeling, bit-equal with
+   equal sweeps and the sweeps that took the delta path counted; ``bf16`` and
+   ``delta`` at the CPU tests' size (``tests/test_distributed.py``'s
+   rmat(10) batch, 8 shards) on the card and on the CPU, and ``bf16`` at
+   n = 1M (f32, τ = 1e-7, a static solve of phase 3's final graph: sweeps,
+   L1 and L∞ to the oracle); ``hash`` and ``bfs_blocks`` sessions opened
+   from phase 3's opening ranks and given batch 1 (within 1e-8 of the
+   contiguous run; edge cut, live tiles per shard, card memory, the
+   partition's seconds).
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
 path's (phase 8), the durable path's (phase 9), the tiered path's
 (phase 10), the tiered push path's (phase 11), the integrity path's
-(phase 12), the serving path's (phase 13) and the walk path's (phase 14;
-the walk kernels run only there).  Prints the
-kernel table as one JSON line, then as its last line
+(phase 12), the serving path's (phase 13), the walk path's (phase 14;
+the walk kernels run only there) and the sharded path's (phase 15).
+Prints the kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -3236,6 +3259,344 @@ def _walk_phase(bsk, bws, hg, batches, nd_batch, ref, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the sharded session on the main path's graph
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8
+DELTA_CAPACITY = 4096            # the runtime-level delta exchange
+SMALL_TAU = 1e-7                 # the CPU tests' bf16 run (rmat(10), f32)
+
+
+def _mem_gb(mem0: int) -> float:
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated() - mem0) / 1e9
+
+
+def _sharded_stream(bsk, hg, batches, nd_batch, cfg, p3: dict,
+                    smi: str) -> tuple:
+    """One 8-shard session opened cold on phase 3's graph, streamed through
+    phase 3's 8 df batches (each held to phase 3's ranks after the same
+    batch, kernel #1 launched 16 times a sweep), the df replay of the last
+    one (bit for bit) and the nd batch.  Returns the open session and its
+    host ranks after each batch, sweeps and exchange counts."""
+    from repro_torch.api.session import PageRankSession
+    name = f"sharded {cfg.exchange}"
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sess = PageRankSession.from_graph(hg, config=cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    r_open = sess.ranks
+    e_open = _linf(r_open, p3["r_open"], sess.n)
+    # the cold solve's counters: a static re-solve repeats it bit for bit
+    st = sess.recompute("static")
+    torch.cuda.synchronize()
+    _check(bool(np.array_equal(sess.ranks, r_open)),
+           f"{name}: recompute('static') differs from the cold open")
+    mem = _mem_gb(mem0)
+    rt = sess.runtime
+    tiles = [m.n_tiles() for m in rt.dg.mats]
+    print(f"{name} open (partition {sess._partition_s:.2f} s, cold solve): "
+          f"{t_open:.2f} s; L_inf {e_open:.3e} to phase 3's opening ranks; "
+          f"static re-solve {st.stats.sweeps} sweeps in "
+          f"{st.wall_time_s * 1e3:.1f} ms, bit-equal; live tiles per shard "
+          f"{min(tiles)}-{max(tiles)}, capacity "
+          f"{rt.dg.mats[0].tile_capacity}; card memory {mem:.3f} GB beside "
+          f"phase 3's session {p3['mem'] / 1e9:.3f} GB [{smi}]", flush=True)
+    _check(st.stats.converged and e_open <= 1e-8,
+           f"{name}: the cold open is {e_open} off phase 3's")
+    sess.warmup()
+    out = {"ranks": [], "sweeps": [], "walls": [], "syncs": [], "edges": []}
+    for i, (dels, ins) in enumerate(batches):
+        before = (bsk.block_spmv_cuda.launches,
+                  bsk.block_spmv_active_cuda.launches)
+        res = sess.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        r = sess.ranks
+        err = _linf(r, p3["r_batches"][i], sess.n)
+        out["ranks"].append(r)
+        for k, v in (("sweeps", res.stats.sweeps),
+                     ("walls", res.wall_time_s * 1e3),
+                     ("syncs", res.host_syncs),
+                     ("edges", res.stats.edges_processed)):
+            out[k].append(v)
+        launched = bsk.block_spmv_cuda.launches - before[0]
+        print(f"{name} df update {i}: {res.wall_time_s * 1e3:.2f} ms, "
+              f"sweeps {res.stats.sweeps} (phase 3: {p3['sweeps'][i]}), "
+              f"edges {res.stats.edges_processed}, host syncs "
+              f"{res.host_syncs}, kernel #1 launches {launched}; L_inf "
+              f"{err:.3e} to phase 3's", flush=True)
+        _check(res.converged and err <= 1e-8,
+               f"{name}: df update {i} is {err} off phase 3's")
+        _check(launched == 2 * N_SHARDS * res.stats.sweeps
+               and bsk.block_spmv_active_cuda.launches == before[1],
+               f"{name}: df update {i} launched {launched} kernel #1 over "
+               f"{res.stats.sweeps} sweeps")
+    last = res.ranks
+    replay = sess.recompute("df")
+    torch.cuda.synchronize()
+    _check(bool(torch.equal(replay.ranks, last)),
+           f"{name}: recompute('df') differs from the last df update")
+    nd = sess.update(*nd_batch, variant="nd")
+    torch.cuda.synchronize()
+    out["ranks"].append(sess.ranks)
+    out["sweeps"].append(nd.stats.sweeps)
+    e_nd = _linf(out["ranks"][-1], p3["r_nd"], sess.n)
+    e_ref = _linf(out["ranks"][-1], p3["ref"], sess.n)
+    rep = sess.report()
+    walls = np.array(out["walls"])
+    out["x"] = (sess._x_full, sess._x_delta)
+    out["mem"] = mem
+    print(f"{name}: replay bit-equal ({replay.stats.sweeps} sweeps); nd "
+          f"{nd.stats.sweeps} sweeps, L_inf {e_nd:.3e} to phase 3's nd and "
+          f"{e_ref:.3e} to its oracle; df p50 "
+          f"{np.percentile(walls, 50):.2f} ms, p95 "
+          f"{np.percentile(walls, 95):.2f} ms (phase 3: p50 "
+          f"{np.percentile(p3['df_ms'], 50):.2f} ms); host syncs "
+          f"{out['syncs']} (phase 3: {p3['syncs']}); edge_cut "
+          f"{rep.edge_cut:.6f}; collective bytes a sweep (wire model) "
+          f"{rep.collective_bytes_per_sweep:.4g}; exchanges full/delta "
+          f"{out['x'][0]}/{out['x'][1]}; kernel builds after warmup "
+          f"{rep.retraces_post_warmup} [{smi}]", flush=True)
+    _check(nd.converged and e_nd <= 1e-8 and e_ref <= 1e-8,
+           f"{name}: the nd update is {e_nd} off phase 3's, {e_ref} off "
+           "its oracle")
+    _check(rep.retraces_post_warmup == 0, f"{name}: a build after warmup")
+    vals, ids = sess.top_k(10)
+    _check(bool(np.array_equal(sess.query(ids), vals)),
+           f"{name}: query != top_k values")
+    _check(float(np.abs(vals - p3["ref"][ids]).max()) <= 1e-8,
+           f"{name}: top_k values off the oracle")
+    return sess, out
+
+
+def _shard_kernel_checks(bsk, ops, mat, n_pad: int, smi: str) -> None:
+    """Kernel #1 on one shard's matrix, sum and or, against its plain
+    version on the card (≤ 1e-12 for sum, exact for or) and timed beside
+    its bound (the fewest bytes of the matrix, the x entries of its live
+    column blocks, y); the launches are not the path's."""
+    saved = (bsk.block_spmv_cuda.launches,
+             bsk.block_spmv_active_cuda.launches)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.rand(n_pad, dtype=torch.float64, device="cuda",
+                   generator=g) * 1e-6
+    flags = (torch.rand(n_pad, device="cuda", generator=g) < 0.05).double()
+    nnz = int(mat.index.cnt.sum())
+    live = mat.n_tiles()
+    # x is read only in the column blocks of the shard's live tiles
+    tc = mat.tile_cols_h
+    x_cols = len(np.unique(tc[tc >= 0])) * mat.block
+    for semiring, xv in (("sum", x), ("or", flags)):
+        y = ops.block_spmv(mat, xv, semiring=semiring)
+        yp = bsk.block_spmv_plain(
+            mat.tile_idx, mat.tile_cols, mat.tiles, ops._pad_x(mat, xv),
+            block=mat.block, max_tiles=mat.max_tiles,
+            semiring=semiring)[:mat.n_rows]
+        err = float((y - yp).abs().max())
+        ms = _time_ms(lambda: ops.block_spmv(mat, xv, semiring=semiring), 50)
+        plain_ms = _event_ms(lambda: bsk.block_spmv_plain(
+            mat.tile_idx, mat.tile_cols, mat.tiles, ops._pad_x(mat, xv),
+            block=mat.block, max_tiles=mat.max_tiles, semiring=semiring))
+        bound_ms, by = _bound(
+            _work_bytes(nnz, mat.n_rows, live, 8) + x_cols * 8
+            + mat.n_rows * 8, 2 * nnz)
+        print(f"shard 0 kernel #1 ({semiring}): {mat.n_rows} rows x "
+              f"{n_pad} columns, {nnz} nonzeros in {live} tiles reading "
+              f"{x_cols} entries of x; "
+              f"{ms:.4f} ms (plain {plain_ms:.3f} ms), bound {bound_ms:.4f} "
+              f"ms ({by}); max_abs_err {err:.3e} [{smi}]", flush=True)
+        _check(err <= (1e-12 if semiring == "sum" else 0.0),
+               f"shard kernel #1 ({semiring}) off its plain version: {err}")
+    (bsk.block_spmv_cuda.launches,
+     bsk.block_spmv_active_cuda.launches) = saved
+
+
+def _runtime_delta(hg, batches, p3: dict, smi: str) -> None:
+    """The delta exchange at capacity ``DELTA_CAPACITY`` (no config carries
+    a capacity; the session's is 1024): a ``full`` and a ``delta``
+    runtime on phase 3's graph, relabeled contiguously, take phase 3's df
+    batches as the session does (the effective batch, the O(batch) seeds)
+    from the same ranks.  After every batch the two are bit-equal with
+    equal sweeps and within 1e-8 of phase 3's ranks; the sweeps that took
+    the delta path are counted."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.incremental import effective_batch
+    from repro_torch.graphs import partition as gpart
+    order, inv, _ = gpart.make_partition(hg, N_SHARDS, "contiguous")
+    hg_rel, _ = gpart.relabel(hg, order)
+    mesh = dist.ShardMesh.on("cuda", N_SHARDS)
+    rts = {ex: dist.DistRuntime(hg_rel, mesh, tau=TAU, exchange=ex,
+                                delta_capacity=DELTA_CAPACITY, block=BLOCK)
+           for ex in ("full", "delta")}
+    R = torch.zeros(rts["full"].n_pad, dtype=torch.float64, device="cuda")
+    R[:hg.n] = torch.from_numpy(p3["r_open"][:hg.n][order]).cuda()
+    tally = {ex: [0, 0, 0.0] for ex in rts}    # full, delta, seconds
+    sweeps = []
+    for i, (dels, ins) in enumerate(batches):
+        d_rel, i_rel = inv[dels], inv[ins]
+        d_eff, i_eff = effective_batch(hg_rel, d_rel, i_rel)
+        hg_new = hg_rel.apply_batch(d_rel, i_rel)
+        idx = dist.df_seed_indices(
+            hg_rel, hg_new, np.concatenate([d_rel[:, 0], i_rel[:, 0]]))
+        hg_rel = hg_new
+        out = {}
+        for ex, rt in rts.items():
+            t0 = time.perf_counter()
+            rt.apply_batch(d_eff, i_eff)
+            out[ex] = rt.drive(R, rt.mask_from_indices(idx), expand=True)
+            torch.cuda.synchronize()
+            tally[ex][0] += out[ex][1].full_exchanges
+            tally[ex][1] += out[ex][1].delta_exchanges
+            tally[ex][2] += time.perf_counter() - t0
+        (Rf, sf), (Rd, sd) = out["full"], out["delta"]
+        err = _linf(Rf.cpu().numpy()[inv], p3["r_batches"][i], hg.n)
+        _check(sf.converged and bool(torch.equal(Rf, Rd))
+               and sf.sweeps == sd.sweeps and err <= 1e-8,
+               f"runtime delta ({DELTA_CAPACITY}) batch {i}: bit-equal "
+               f"{torch.equal(Rf, Rd)}, sweeps {sd.sweeps} vs {sf.sweeps}, "
+               f"{err} off phase 3's")
+        sweeps.append(sf.sweeps)
+        R = Rf
+    print(f"runtime delta at capacity {DELTA_CAPACITY} vs full ({len(batches)} df "
+          f"batches, contiguous): ranks bit-equal and sweeps equal after "
+          f"every batch; sweeps {sweeps}; exchanges full/delta "
+          f"{tally['delta'][0]}/{tally['delta'][1]} (the full runtime "
+          f"{tally['full'][0]}/{tally['full'][1]}); batch + drive "
+          f"{tally['delta'][2] * 1e3:.1f} ms vs full "
+          f"{tally['full'][2] * 1e3:.1f} ms over the 8 [{smi}]", flush=True)
+
+
+def _small_runs(smi: str) -> None:
+    """``tests/test_distributed.py``'s graph and batch (rmat(10), 8
+    shards): the bf16 run (f32, τ = 1e-7) on the card within the JAX test's
+    1e-4 of the oracle, its counters beside the same call on the CPU; the
+    delta run (capacity 4096) makes delta exchanges."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.delta import random_batch
+    from repro_torch.core.frontier import batch_to_device, initial_affected
+    from repro_torch.core.pagerank import numpy_reference
+    from repro_torch.graphs.generators import rmat
+    hg0 = rmat(10, avg_degree=8, seed=3)
+    g0 = hg0.snapshot(block_size=64, device="cpu")
+    ref0 = numpy_reference(g0, iterations=300)
+    dels, ins = random_batch(hg0, 1e-3, seed=11)
+    hg1 = hg0.apply_batch(dels, ins)
+    g1 = hg1.snapshot(block_size=64, device="cpu")
+    ref1 = numpy_reference(g1, iterations=300)[:hg1.n]
+    aff0 = initial_affected(g0, g1, batch_to_device(g1, dels, ins))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        for kw in (dict(exchange="bf16", tau=SMALL_TAU, dtype=torch.float32),
+                   dict(exchange="delta", delta_capacity=4096)):
+            R, st = dist.run_distributed(
+                hg1, dist.ShardMesh.on(dev, N_SHARDS),
+                r_prev=torch.from_numpy(ref0), affected0=aff0, expand=True,
+                **kw)
+            got[dev, kw["exchange"]] = (
+                st, float(np.abs(R.cpu().numpy()[:hg1.n] - ref1).max()))
+    for ex, tol in (("bf16", 1e-4), ("delta", 1e-8)):
+        (sg, eg), (sc, ec) = got["cuda", ex], got["cpu", ex]
+        print(f"rmat(10), 8 shards, {ex}: card {sg} L_inf {eg:.3e}; CPU "
+              f"plain {sc} L_inf {ec:.3e} [{smi}]", flush=True)
+        _check(sg.converged and eg < tol,
+               f"rmat(10) {ex} on the card: {sg}, L_inf {eg}")
+    _check(got["cuda", "delta"][0].delta_exchanges > 0,
+           "rmat(10) delta on the card made no delta exchange")
+
+
+def _sharded_phase(bsk, ops, hg, hg_ref, batches, nd_batch, p3: dict,
+                   smi: str) -> dict:
+    """Phase 15: 8-shard sessions on phase 3's graph and batches, launch
+    counters zeroed just before and read at the end (the kernel checks
+    against the plain version excluded).  Returns the launches."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    t_phase = time.perf_counter()
+    base = dict(topology="sharded", n_shards=N_SHARDS, block_size=BLOCK,
+                dtype=torch.float64, tau=TAU)
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    # -- the full exchange: cold open, stream, replay, nd --------------------
+    sess, full = _sharded_stream(
+        bsk, hg, batches, nd_batch,
+        EngineConfig(**base, partitioner="contiguous", exchange="full"), p3,
+        smi)
+    _shard_kernel_checks(bsk, ops, sess.runtime.dg.mats[0],
+                         sess.runtime.n_pad, smi)
+    sess.close()
+    torch.cuda.empty_cache()
+    # -- the delta exchange (the session's capacity, 1024): bit-equal ------
+    sess, delta = _sharded_stream(
+        bsk, hg, batches, nd_batch,
+        EngineConfig(**base, partitioner="contiguous", exchange="delta"), p3,
+        smi)
+    sess.close()
+    torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b)
+               for a, b in zip(full["ranks"], delta["ranks"]))
+    print(f"delta vs full: ranks bit-equal after every batch: {same}; "
+          f"sweeps {delta['sweeps']} vs {full['sweeps']}; exchanges "
+          f"full/delta {delta['x'][0]}/{delta['x'][1]} (the full run "
+          f"{full['x'][0]}/{full['x'][1]})", flush=True)
+    _check(same and delta["sweeps"] == full["sweeps"],
+           "the delta exchange's ranks or sweeps differ from the full's")
+    _runtime_delta(hg, batches, p3, smi)
+    torch.cuda.empty_cache()
+    # -- bf16: the CPU tests' size, then n = 1M on phase 3's final graph ----
+    _small_runs(smi)
+    cfg = EngineConfig(topology="sharded", n_shards=N_SHARDS,
+                       block_size=BLOCK, dtype=torch.float32, tau=SMALL_TAU,
+                       exchange="bf16")
+    sess = PageRankSession.from_graph(
+        hg_ref, config=cfg, r0=np.full(hg_ref.n, 1.0 / hg_ref.n),
+        device="cuda")
+    st = sess.recompute("static")
+    torch.cuda.synchronize()
+    r = sess.ranks[:sess.n].astype(np.float64)
+    ref = p3["ref"][:sess.n]
+    print(f"sharded bf16 at n = {sess.n} (f32, tau {SMALL_TAU}, static on "
+          f"phase 3's final graph): converged {st.stats.converged}, sweeps "
+          f"{st.stats.sweeps}, {st.wall_time_s * 1e3:.1f} ms; L1 "
+          f"{np.abs(r - ref).sum():.3e}, L_inf {np.abs(r - ref).max():.3e} "
+          f"to the oracle [{smi}]", flush=True)
+    _check(bool(np.isfinite(r).all()), "bf16 ranks are not finite")
+    sess.close()
+    torch.cuda.empty_cache()
+    # -- the other partitioners: open warm, batch 1 --------------------------
+    for part in ("hash", "bfs_blocks"):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sess = PageRankSession.from_graph(
+            hg, config=EngineConfig(**base, partitioner=part),
+            r0=p3["r_open"][:hg.n], device="cuda")
+        t_open = time.perf_counter() - t0
+        mem = _mem_gb(mem0)
+        res = sess.update(*batches[0], variant="df")
+        torch.cuda.synchronize()
+        err = _linf(sess.ranks, full["ranks"][0], sess.n)
+        tiles = [m.n_tiles() for m in sess.runtime.dg.mats]
+        print(f"sharded {part}: partition {sess._partition_s:.2f} s, open "
+              f"{t_open:.2f} s; edge_cut {sess.report().edge_cut:.6f}; live "
+              f"tiles per shard {min(tiles)}-{max(tiles)}; card memory "
+              f"{mem:.3f} GB; df update 0 {res.wall_time_s * 1e3:.2f} ms, "
+              f"sweeps {res.stats.sweeps}; L_inf {err:.3e} to the contiguous "
+              f"run's [{smi}]", flush=True)
+        _check(res.converged and err <= 1e-8,
+               f"sharded {part}: {err} off the contiguous run")
+        sess.close()
+        torch.cuda.empty_cache()
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches}
+    print(f"launches on the sharded path: {launches}; phase 15 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    _check(launches["block_spmv"] > 0, "the sharded path launched no "
+           "block_spmv")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3320,8 +3681,7 @@ def main() -> None:
         if idx.entry_capacity == e_cap0 and idx.tail > tail0:
             growth.append(idx.tail - tail0)         # not a compaction
         df.append(res)
-        if i + 1 in (N_CHILD_UPDATES, N_DF_UPDATES):   # for phase 9
-            kept[i + 1] = sess.ranks
+        kept[i + 1] = sess.ranks            # for phases 9 and 15
         print(f"df update {i}: {len(dels)} del + {len(ins)} ins, "
               f"{res.wall_time_s * 1e3:.2f} ms, sweeps {res.stats.sweeps}, "
               f"blocks {res.stats.blocks_processed}, edges "
@@ -3415,7 +3775,9 @@ def main() -> None:
     p3 = {"r_open": r_open, "r_df": kept[N_DF_UPDATES], "r_nd": r,
           f"r_{N_CHILD_UPDATES}": kept[N_CHILD_UPDATES],
           "ref": ref, "mem": mem3, "df_ms": walls,
-          "syncs": [x.host_syncs for x in df]}
+          "syncs": [x.host_syncs for x in df],
+          "sweeps": [x.stats.sweeps for x in df],
+          "r_batches": [kept[i + 1] for i in range(N_DF_UPDATES)]}
     tier_launches, pool_bytes, tier_ms = _tiered_phase(
         bsk, hg, batches, nd_batch, p3, smi)
     torch.cuda.empty_cache()
@@ -3437,12 +3799,18 @@ def main() -> None:
     # -- phase 14: the walk engine and PPR, same graph and batches ----------
     walk_launches, walk_rows = _walk_phase(bsk, bws, hg, batches, nd_batch,
                                            ref, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the sharded session, same graph and batches --------------
+    shard_launches = _sharded_phase(bsk, ops, hg, hg_ref, batches, nd_batch,
+                                    p3, smi)
     for row in table:
         row["launches"] = sum(
             path[row["name"]] for path in (
                 launches, push_launches, var_launches, blk_launches,
                 dur_launches, tier_launches, tpush_launches,
-                integ_launches, serve_launches, walk_launches))
+                integ_launches, serve_launches, walk_launches,
+                shard_launches))
     table.append(sweep_row)
     table.extend(walk_rows)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)

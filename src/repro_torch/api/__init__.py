@@ -2,7 +2,7 @@
 the reference's public surface.
 
 Names of ``repro.api.__all__`` that a later slice brings are absent: the
-shard domain (``ShardFault``, ``ShardFaultDomain``: ROADMAP A 14).
+shard domain (``ShardFault``, ``ShardFaultDomain``: ROADMAP A 14b).
 """
 from repro_torch.api.config import EngineConfig, ServingConfig
 from repro_torch.api import registry

@@ -3,14 +3,14 @@
 
 Same fields and the same construction-time validation as the JAX config.
 ``engine`` resolves through :mod:`repro_torch.api.registry` (``None`` →
-``"pallas"``, or a ``REPRO_ENGINE`` override, validated eagerly).  Values
-that belong to later slices of the port raise ``NotImplementedError`` at
-construction, naming the ROADMAP item (queue A) that brings them; a config
-that constructs is one the port runs: ``device_budget_bytes`` tiers a
-stream under either driver.  The ``driver="push"`` rules, the budget's rules and the ``fault_domain=``
-checks come before those refusals, so a config the reference refuses for
-good gets the reference's ``ValueError``.
-``fault_domain=`` takes a
+``"pallas"``, or a ``REPRO_ENGINE`` override, validated eagerly;
+``topology="sharded"`` resolves ``"distributed"``).  Values that belong to
+later slices of the port raise ``NotImplementedError`` at construction,
+naming the ROADMAP item (queue A) that brings them; a config that
+constructs is one the port runs: ``device_budget_bytes`` tiers a stream
+under either driver, and ``topology="sharded"`` runs ``n_shards`` logical
+shards.  Every refusal the reference makes for good comes first, with the
+reference's ``ValueError``.  ``fault_domain=`` takes a
 :class:`~repro_torch.core.fault_domain.ThreadFaultDomain` (the same as
 ``faults=`` its plan) or a
 :class:`~repro_torch.core.fault_domain.CorruptionFaultDomain` (the pallas
@@ -18,21 +18,28 @@ engine's), and any other domain the resolved engine declares, as the
 reference does.  The process domain comes from ``durability="wal"`` with a
 session's ``store_dir=``; a ``ProcessFaultDomain`` given as
 ``fault_domain=`` gets the reference's ``ValueError``.  A domain named
-``"shard"`` is a later slice (A 14).  ``integrity=`` takes an
+``"shard"``, and ``durability="wal"`` or ``integrity=`` on a sharded
+topology, are a later slice (A 14b).  ``integrity=`` takes an
 :class:`~repro_torch.core.integrity.IntegrityConfig` or its kwargs dict
 (the form a store's meta round-trips) and is coerced to the former.
 
-Two fields mean less here than in the reference:
+Some fields mean less, or other things, here than in the reference:
 
 * ``engine`` is ``"pallas"`` (the fused frontier engine, whose tile SpMV is
   the hand-written CUDA kernel on the card), ``"blocked"`` (in-order
   Gauss–Seidel sweeps on the hand-written sweep kernel), ``"dense"`` (the
-  oracle; its LF mode is the blocked engine) or ``"walk"`` (the Monte Carlo
+  oracle; its LF mode is the blocked engine), ``"walk"`` (the Monte Carlo
   walk engine, the only one that takes the walk fields and serves
-  personalized reads, on the hand-written walk kernels);
+  personalized reads, on the hand-written walk kernels) or
+  ``"distributed"`` (the sharded engine, which ``topology="sharded"``
+  selects);
 * ``backend`` accepts only ``None``: the tensors' device picks the kernel
   (CUDA) or its plain version (CPU), and no setting can put the plain
-  version on the card.
+  version on the card;
+* ``n_shards`` counts logical shards on the session's one device, so no
+  count exceeds the visible devices (the reference refuses one that
+  does), and ``None`` resolves to 1 (the reference: every visible JAX
+  device).
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import torch
 
 from repro_torch.api import registry
 from repro_torch.device import as_torch_dtype
+from repro_torch.graphs.partition import PARTITIONERS
 
 MODES = ("lf", "bb")
 ACTIVE_POLICIES = ("affected", "rc")
@@ -50,16 +58,15 @@ DRIVERS = ("pull", "push")
 TOPOLOGIES = ("single", "sharded")
 EXCHANGES = ("full", "bf16", "delta")
 DURABILITIES = ("none", "wal")
-PARTITIONERS = ("contiguous", "hash", "bfs_blocks")
 # load-shedding policies of a full serving queue (ServingConfig):
 #   "reject"      — refuse the NEW submit (caller sees AdmissionRejected);
 #   "drop_oldest" — shed the oldest queued request to admit the new one
 SHED_POLICIES = ("reject", "drop_oldest")
 # ROADMAP queue-A items that bring the values this slice rejects
 _LATER = {
-    "engine:distributed": "A 14 (sharded topology)",
-    "topology:sharded": "A 14 (sharded topology)",
-    "fault_domain": "A 14 (sharded topology and the shard domain)",
+    "fault_domain": "A 14b (the shard fault domain)",
+    "sharded:durability": "A 14b (durable and elastic sharded sessions)",
+    "sharded:integrity": "A 14b (the sharded session's fault handling)",
 }
 
 
@@ -69,7 +76,8 @@ def _later(what: str, key: str) -> NotImplementedError:
         "the port runs the single-device session (pallas engine with the "
         "pull or push driver, tiered or not; blocked, dense and walk "
         "engines; the thread, process and corruption fault domains; "
-        "integrity=)")
+        "integrity=) and the sharded stream session (topology='sharded', "
+        "no fault domain, not durable)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +134,42 @@ class EngineConfig:
                 "faults must be a FaultPlan (needs .device_tables())")
         if self.dtype is not None:
             as_torch_dtype(self.dtype)
+        # -- topology axis: the reference's rules, before anything resolves
+        # the engine (the reference's device-count check has no counterpart:
+        # the shards are logical)
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"topology={self.topology!r} invalid; "
+                             f"expected one of {TOPOLOGIES}")
+        if self.partitioner not in PARTITIONERS:
+            raise ValueError(f"partitioner={self.partitioner!r} invalid; "
+                             f"expected one of {PARTITIONERS}")
+        if self.exchange not in EXCHANGES:
+            raise ValueError(f"exchange={self.exchange!r} invalid; "
+                             f"expected one of {EXCHANGES}")
+        if self.n_shards is not None and int(self.n_shards) <= 0:
+            raise ValueError(f"n_shards={self.n_shards} must be > 0 "
+                             "(or None for one shard)")
+        if self.topology == "single":
+            if self.n_shards is not None:
+                raise ValueError(
+                    "n_shards is only meaningful with topology='sharded' "
+                    f"(got topology='single', n_shards={self.n_shards})")
+            if self.engine == "distributed":
+                raise ValueError(
+                    "engine='distributed' requires topology='sharded' — "
+                    "topology is the config axis that selects it")
+        else:
+            if self.engine not in (None, "distributed"):
+                raise ValueError(
+                    f"topology='sharded' resolves engine='distributed'; "
+                    f"engine={self.engine!r} cannot run sharded (leave "
+                    "engine=None)")
+            if self.faults is not None:
+                raise ValueError(
+                    "fault simulation is not supported with "
+                    "topology='sharded' (stragglers are the model: stale "
+                    "contributions, no crash tables) — use a single-device "
+                    "engine with a FaultPlan")
         if self.integrity is not None:
             # the kwargs-dict form (what a store's meta round-trips through
             # restore()) is coerced in place, as the reference does
@@ -159,10 +203,7 @@ class EngineConfig:
                 raise ValueError(
                     "device_budget_bytes requires the streaming pallas "
                     f"engine (got engine={self.engine!r})")
-        later_engine = (self.engine is not None
-                        and f"engine:{self.engine}" in _LATER)
-        eng_name = (self.engine if later_engine
-                    else registry.resolve(self.engine).name)
+        eng_name = registry.resolve(self._engine_for_resolution()).name
         # -- driver axis: the push rules come before every later-slice
         # refusal below, so what the reference refuses for good raises its
         # ValueError here too
@@ -190,25 +231,6 @@ class EngineConfig:
                 raise ValueError(
                     "integrity invariants instrument the pull iterate; "
                     "driver='push' does not support integrity=")
-        if later_engine:
-            raise _later(f"engine={self.engine!r}", f"engine:{self.engine}")
-        # -- topology axis ----------------------------------------------------
-        if self.topology not in TOPOLOGIES:
-            raise ValueError(f"topology={self.topology!r} invalid; "
-                             f"expected one of {TOPOLOGIES}")
-        if self.partitioner not in PARTITIONERS:
-            raise ValueError(f"partitioner={self.partitioner!r} invalid; "
-                             f"expected one of {PARTITIONERS}")
-        if self.exchange not in EXCHANGES:
-            raise ValueError(f"exchange={self.exchange!r} invalid; "
-                             f"expected one of {EXCHANGES}")
-        if self.n_shards is not None and int(self.n_shards) <= 0:
-            raise ValueError(f"n_shards={self.n_shards} must be > 0 "
-                             "(or None for all visible devices)")
-        if self.topology == "single" and self.n_shards is not None:
-            raise ValueError(
-                "n_shards is only meaningful with topology='sharded' "
-                f"(got topology='single', n_shards={self.n_shards})")
         # -- fault domains: the reference's checks come before the
         # later-slice refusals, so a thread domain on a sharded topology
         # gets the reference's ValueError
@@ -234,8 +256,6 @@ class EngineConfig:
                     f"engine {eng.name!r} does not host the "
                     f"{self.fault_domain.name!r} fault domain (declares "
                     f"{registry.fault_domains_of(eng)})")
-        if self.topology == "sharded":
-            raise _later("topology='sharded'", "topology:sharded")
         # -- fault-domain / durability axis -----------------------------------
         if self.durability not in DURABILITIES:
             raise ValueError(f"durability={self.durability!r} invalid; "
@@ -272,12 +292,38 @@ class EngineConfig:
                     "integrity checks instrument the stream-mode "
                     f"pull-matrix state; engine {eng.name!r} does not "
                     "host them (integrity must be None)")
+        # -- what the reference accepts on a sharded topology and a later
+        # slice brings
+        if self.topology == "sharded":
+            if self.durability == "wal":
+                raise _later("durability='wal' with topology='sharded'",
+                             "sharded:durability")
+            if self.integrity is not None:
+                raise _later("integrity= with topology='sharded'",
+                             "sharded:integrity")
+
+    def _engine_for_resolution(self) -> Optional[str]:
+        """Topology-aware engine name: a sharded config always resolves the
+        ``distributed`` engine (defaults and ``REPRO_ENGINE`` apply to
+        ``single``)."""
+        if self.topology == "sharded":
+            return self.engine or "distributed"
+        return self.engine
 
     # -- resolution helpers --------------------------------------------------
     @property
     def resolved_engine(self) -> str:
-        """Engine name after default/env resolution (registry-validated)."""
-        return registry.resolve(self.engine).name
+        """Engine name after topology/default/env resolution
+        (registry-validated)."""
+        return registry.resolve(self._engine_for_resolution()).name
+
+    @property
+    def resolved_n_shards(self) -> Optional[int]:
+        """Shard count under ``topology="sharded"`` (``None`` → 1: the
+        shards are logical); ``None`` for single-device configs."""
+        if self.topology != "sharded":
+            return None
+        return int(self.n_shards) if self.n_shards is not None else 1
 
     def resolved_tau_f(self, *, expand: bool) -> float:
         if not expand:

@@ -3,12 +3,11 @@
 
 Each core engine module owns its adapter (``as_engine()`` in
 :mod:`repro_torch.core.blocked`, :mod:`repro_torch.core.pagerank` (dense),
-:mod:`repro_torch.core.pallas_engine` and :mod:`repro_torch.core.walk_engine`);
-the registry imports and registers them lazily on first resolve, so the
-core modules stay import-cycle-free.  External code can plug in more
-engines with :func:`register`.  The reference's ``distributed`` engine is
-not ported yet: ``EngineConfig`` refuses it, naming the ROADMAP item that
-brings it.
+:mod:`repro_torch.core.pallas_engine`, :mod:`repro_torch.core.walk_engine`
+and :mod:`repro_torch.core.distributed`); the registry imports and
+registers them lazily on first resolve, so the core modules stay
+import-cycle-free.  External code can plug in more engines with
+:func:`register`.
 
 ``resolve(None)`` applies :func:`default_engine` and validates a
 ``REPRO_ENGINE`` environment override *through the registry*.  The
@@ -51,7 +50,8 @@ _REGISTRY: Dict[str, Engine] = {}
 _BUILTINS = ("repro_torch.core.blocked",         # blocked
              "repro_torch.core.pagerank",        # dense
              "repro_torch.core.pallas_engine",   # pallas
-             "repro_torch.core.walk_engine")     # walk
+             "repro_torch.core.walk_engine",     # walk
+             "repro_torch.core.distributed")     # distributed
 _builtins_loaded = False
 
 

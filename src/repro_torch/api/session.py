@@ -18,7 +18,10 @@ corruption fault domain (``verify`` with its repair ladder,
 :class:`~repro_torch.api.service.PageRankService` uses (the ``_service``
 backref ``close`` unregisters through, and :class:`ReadView`, the
 ranks-only copy degraded reads are served from), and the walk mode
-(``_init_walk``, ``_update_walk``, ``_recompute_walk``, ``ppr_query``)::
+(``_init_walk``, ``_update_walk``, ``_recompute_walk``, ``ppr_query``), and
+the sharded mode (``_init_sharded``, ``_crossing``, ``_sharded_affected``,
+``_update_sharded``, ``_recompute_sharded``; ``report()``'s topology
+fields)::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -47,7 +50,11 @@ ranks-only copy degraded reads are served from), and the walk mode
     walks.update(dels, ins)         # regenerate the walks the batch touches
     walks.ppr_query([3, 17], k=10)  # personalized top-k from the seeds' walks
 
-Three modes, picked at construction:
+    sharded = PageRankSession.from_graph(
+        hg, config=EngineConfig(topology="sharded", n_shards=8))
+    sharded.update(dels, ins)       # routed to the owning shards' matrices
+
+Four modes, picked at construction:
 
 * **stream mode** (``from_graph`` + the pallas engine): the graph is
   snapshotted once; the capacity-padded pull matrix and the per-vertex /
@@ -73,6 +80,18 @@ Three modes, picked at construction:
   Its walks, counts and reads equal the reference's bit for bit; a WAL
   replay regenerates them exactly.  It hosts the process fault domain
   only: ``verify`` and ``inject_corruption`` raise.
+* **sharded mode** (``EngineConfig(topology="sharded")``): the vertex set is
+  relabeled by the configured partitioner
+  (:mod:`repro_torch.graphs.partition`) and split over ``n_shards`` logical
+  shards on the session's device; a
+  :class:`~repro_torch.core.distributed.DistRuntime` holds each shard's
+  pull matrix and degree slices, patched per batch, and drives the
+  stale-synchronous sweep (each shard's pull and expansion on the tile
+  SpMV kernel, the exchange as copies).  Ranks stay in the relabeled space
+  on the device; ``query``, ``top_k`` and ``ranks`` translate back.  The
+  edge cut is kept in O(batch) per update.  A shard fault domain,
+  ``durability="wal"`` and ``integrity=`` are a later slice (A 14b):
+  ``verify`` and ``inject_corruption`` raise.
 
 One ordering differs from the reference, because the port patches the tile
 pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
@@ -148,6 +167,7 @@ from repro_torch.core.incremental import (IncrementalPullMatrix,
                                           MatrixAux, effective_batch)
 from repro_torch.core.pagerank import PagerankResult
 from repro_torch.device import as_torch_dtype, resolve_device
+from repro_torch.graphs import partition as gpart
 from repro_torch.kernels import nvcc
 from repro_torch.kernels.block_spmv import ops
 
@@ -323,10 +343,14 @@ class ReadView:
     ``ppr_query`` give the session's values, ids, tie order and errors."""
 
     __slots__ = ("R", "valid", "n", "batch_index", "device", "ready",
-                 "engine", "walks", "_walk_args")
+                 "engine", "walks", "_walk_args", "_order", "_inv")
 
     def __init__(self, sess: "PageRankSession"):
         self.R = sess.R.clone()
+        # a sharded session's ranks are in the partitioner's relabeled
+        # space: the view translates ids as the session does
+        self._order = sess._order if sess._sharded else None
+        self._inv = sess._inv if sess._sharded else None
         self.valid = sess.valid.clone()
         self.n = sess.n
         self.batch_index = sess._batch_index
@@ -356,12 +380,13 @@ class ReadView:
     def query(self, vertices) -> np.ndarray:
         idx = _vertex_ids(vertices, self.n)
         self._wait()
-        return _gather(self.R, idx)
+        return _gather(self.R, idx if self._inv is None else self._inv[idx])
 
     def top_k(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
         k = _top_k_count(k, self.n)
         self._wait()
-        return _top_k(self.R, self.valid, k)
+        vals, idx = _top_k(self.R, self.valid, k)
+        return vals, idx if self._order is None else self._order[idx]
 
     def ppr_query(self, seeds, k: int) -> Tuple[np.ndarray, np.ndarray]:
         if self.walks is None:
@@ -413,6 +438,10 @@ class SessionReport:
     batches_converged: int = 0
     sweep_cap_hits: int = 0
     topology: str = "single"
+    n_shards: Optional[int] = None
+    partitioner: Optional[str] = None
+    edge_cut: Optional[float] = None          # realized cross-shard edges
+    collective_bytes_per_sweep: Optional[float] = None  # analytic wire model
     # -- fault domains / durability ------------------------------------------
     durability: str = "none"
     recoveries: int = 0                       # completed, any domain
@@ -455,7 +484,7 @@ class PageRankSession:
         self.config = config
         # a snapshot-mode session runs on its snapshot's device
         self.device = resolve_device(device if g is None else g.device)
-        self.engine = registry.resolve(config.engine)
+        self.engine = registry.resolve(config._engine_for_resolution())
         self.engine_name = self.engine.name
         self.hg = hg
         self.g: Optional[GraphSnapshot] = None
@@ -468,6 +497,10 @@ class PageRankSession:
         # WalkState and serves personalized reads
         self._walk = "ppr" in registry.supports_of(self.engine)
         self.walks: Optional[we.WalkState] = None
+        # sharded mode: logical shards driven by a DistRuntime
+        self._sharded = config.topology == "sharded"
+        self.runtime: Optional[dist.DistRuntime] = None
+        self._shard_spec: Optional[dist.ShardSpec] = None
         # tiered storage: host-truth tile pool + a budget-bounded device hot
         # slab; stream mode only
         self._tiered = config.device_budget_bytes is not None
@@ -548,7 +581,9 @@ class PageRankSession:
         # something writes in place (the drift check would read 0)
         self._r_verified: Optional[torch.Tensor] = None
         self._hg_digest: Optional[int] = None
-        if self._walk:
+        if self._sharded:
+            self._init_sharded(g, r0)
+        elif self._walk:
             self._init_walk(g)
         elif self._stream:
             self._init_stream(r0)
@@ -719,6 +754,55 @@ class PageRankSession:
         self.valid = torch.ones(self.n, dtype=torch.bool, device=self.device)
         self.walks = self._new_walks()
         self.R = self.walks.pagerank()
+
+    def _init_sharded(self, g: Optional[GraphSnapshot], r0) -> None:
+        """Sharded mode (``topology="sharded"``): relabel the vertex set
+        with the configured partitioner and hand the relabeled graph to a
+        :class:`~repro_torch.core.distributed.DistRuntime` over
+        ``n_shards`` logical shards on the session's device.  The ranks
+        stay in the relabeled space; every public read translates back.
+        ``from_snapshot`` without ``hg=`` recovers the host edges (the
+        runtime re-adds the self-loops).  ``_partition_s`` keeps the
+        seconds the partition and the relabeling took."""
+        cfg = self.config
+        if self.hg is None:
+            src, dst = g.in_edges_host()
+            self.hg = HostGraph(g.n, np.stack([src, dst], 1))
+        self.g = None
+        self.inc = None
+        n_shards = cfg.resolved_n_shards
+        self._shard_spec = dist.ShardSpec(
+            n_shards=n_shards, partitioner=cfg.partitioner,
+            exchange=cfg.exchange)
+        t0 = time.perf_counter()
+        self._order, self._inv, _ = gpart.make_partition(
+            self.hg, n_shards, cfg.partitioner)
+        self._hg_rel, _ = gpart.relabel(self.hg, self._order)
+        self._partition_s = time.perf_counter() - t0
+        self._hg_rel_prev: Optional[HostGraph] = None
+        self._last_batch_rel: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._x_full = self._x_delta = self._x_sweeps = 0
+        self.runtime = dist.DistRuntime(
+            self._hg_rel, dist.ShardMesh.on(self.device, n_shards),
+            alpha=cfg.alpha, tau=cfg.tau,
+            tau_f=cfg.resolved_tau_f(expand=True), exchange=cfg.exchange,
+            dtype=self._dtype, block=cfg.block_size)
+        self.n, self.n_pad = self.hg.n, self.runtime.n_pad
+        self.block_size, self.n_rb = cfg.block_size, 0
+        self.valid = self.runtime.valid
+        # the realized shard of vertex v is its relabeled position's
+        # contiguous share: counted once here (O(m)), then kept in O(batch)
+        self._cut_edges = self._crossing(self._hg_rel.edges)
+        if r0 is None:
+            self.R, _ = self.runtime.drive(
+                self._on_valid(1.0 / self.n), self.valid, expand=False,
+                max_sweeps=cfg.max_iterations)
+        else:
+            r0h = torch.as_tensor(r0).cpu().numpy()
+            r_rel = np.zeros(self.n_pad, r0h.dtype)
+            r_rel[:self.n] = r0h[self._order]
+            self.R = torch.as_tensor(r_rel, device=self.device).to(
+                self._dtype)
 
     # -- the snapshot-level solve --------------------------------------------
     def _converge(self, R0, affected0, *, expand: bool,
@@ -1254,6 +1338,112 @@ class PageRankSession:
             touched_walks=wstats.touched_walk_mass,
             total_walks=wstats.total_walks)
 
+    # -- the sharded stream ---------------------------------------------
+    def _crossing(self, edges_rel: np.ndarray) -> int:
+        """Edges (relabeled coordinates) whose endpoints land on different
+        shards under the contiguous layout."""
+        if len(edges_rel) == 0:
+            return 0
+        n_loc = self.runtime.n_loc
+        return int((edges_rel[:, 0] // n_loc
+                    != edges_rel[:, 1] // n_loc).sum())
+
+    def _sharded_affected(self, variant: str, hg_rel_prev: HostGraph,
+                          dels_rel: np.ndarray, ins_rel: np.ndarray
+                          ) -> Tuple[torch.Tensor, int]:
+        """Initial affected mask of one sharded batch (relabeled space) and
+        the host reads it made.  ``df`` seeds from the host adjacency in
+        O(batch · deg) and uploads only the index list; ``dt`` walks
+        reachability on two throwaway snapshots (the what-if path, O(m));
+        ``nd``/``static`` mark every vertex."""
+        if variant == "df":
+            sources = np.concatenate([dels_rel[:, 0], ins_rel[:, 0]])
+            idx = dist.df_seed_indices(hg_rel_prev, self._hg_rel, sources)
+            return self.runtime.mask_from_indices(idx), 0
+        if variant == "dt":
+            g_prev = self._snapshot(hg_rel_prev)
+            g_new = self._snapshot(self._hg_rel)
+            aff, _, polls = fr._dt_reach(
+                g_prev, g_new, fr.batch_to_device(g_new, dels_rel, ins_rel))
+            idx = aff[:self.n].nonzero().squeeze(1).cpu().numpy()
+            return self.runtime.mask_from_indices(idx), polls + 1
+        return self.valid, 0
+
+    def _sharded_result(self, dstats: "dist.DistStats") -> SweepStats:
+        """The drive's counters, added to the exchange totals that
+        ``report()``'s wire model reads."""
+        self._x_full += dstats.full_exchanges
+        self._x_delta += dstats.delta_exchanges
+        self._x_sweeps += dstats.sweeps
+        return SweepStats(sweeps=dstats.sweeps, iterations=dstats.sweeps,
+                          edges_processed=dstats.edges_processed,
+                          converged=dstats.converged)
+
+    def _update_sharded(self, deletions, insertions, variant: str = "df"
+                        ) -> StreamBatchResult:
+        """Sharded step: translate the batch into the relabeled space,
+        route it to its owning shards (host bookkeeping, then each touched
+        shard's matrix and degree slices patched), seed the frontier and
+        re-enter the cached sweep.  The ranks never leave the device; each
+        sweep reads one stats vector (``host_syncs`` counts them, and a
+        ``dt`` marking's reads)."""
+        t0 = time.perf_counter()
+        builds0 = self.runtime.cache_size()
+        dels = np.asarray(deletions, np.int64).reshape(-1, 2)
+        ins = np.asarray(insertions, np.int64).reshape(-1, 2)
+        dels_rel = self._inv[dels] if len(dels) else np.zeros((0, 2),
+                                                               np.int64)
+        ins_rel = self._inv[ins] if len(ins) else np.zeros((0, 2), np.int64)
+        hg_rel_prev = self._hg_rel
+        dels_eff, ins_eff = effective_batch(hg_rel_prev, dels_rel, ins_rel)
+        self._hg_prev, self._g_prev = self.hg, None
+        self._hg_rel_prev = hg_rel_prev
+        self._last_batch = (dels, ins)
+        self._last_batch_rel = (dels_rel, ins_rel)
+        self._r_prev = self.R
+        self.hg = self.hg.apply_batch(dels, ins)
+        self._hg_rel = hg_rel_prev.apply_batch(dels_rel, ins_rel)
+        self.runtime.apply_batch(dels_eff, ins_eff)
+        self._cut_edges += (self._crossing(ins_eff)
+                            - self._crossing(dels_eff))
+        self._snap_s = 0.0
+        affected, seed_syncs = self._sharded_affected(
+            variant, hg_rel_prev, dels_rel, ins_rel)
+        R0 = self._on_valid(1.0 / self.n) if variant == "static" else self.R
+        self.R, dstats = self.runtime.drive(
+            R0, affected, expand=(variant == "df"),
+            max_sweeps=self.config.max_iterations)
+        return StreamBatchResult(
+            ranks=self.R, stats=self._sharded_result(dstats),
+            wall_time_s=time.perf_counter() - t0,
+            batch_edges=len(dels) + len(ins),
+            driver_retraces=self.runtime.cache_size() - builds0,
+            host_syncs=dstats.sweeps + seed_syncs)
+
+    def _recompute_sharded(self, variant: str) -> PagerankResult:
+        """Sharded re-solve through the cached sweep, with the variant
+        semantics of the single-device recompute."""
+        t0 = time.perf_counter()
+        if variant in ("static", "nd"):
+            R0 = self.R if variant == "nd" else self._on_valid(1.0 / self.n)
+            affected, expand = self.valid, False
+        else:
+            if self._last_batch_rel is None:
+                raise ValueError(
+                    f"recompute({variant!r}) replays the last update batch, "
+                    "but no batch has been applied yet — call update() "
+                    "first or use variant='static'/'nd'")
+            self._snap_s = 0.0
+            affected, _ = self._sharded_affected(
+                variant, self._hg_rel_prev, *self._last_batch_rel)
+            R0, expand = self._r_prev, variant == "df"
+        self.R, dstats = self.runtime.drive(
+            R0, affected, expand=expand,
+            max_sweeps=self.config.max_iterations)
+        return PagerankResult(ranks=self.R,
+                              stats=self._sharded_result(dstats),
+                              wall_time_s=time.perf_counter() - t0)
+
     # -- updates -------------------------------------------------------------
     def update(self, deletions, insertions, *, variant: str = "df"
                ) -> StreamBatchResult:
@@ -1296,7 +1486,9 @@ class PageRankSession:
                                          np.int64).reshape(-1, 2),
                     insertions=np.asarray(insertions,
                                           np.int64).reshape(-1, 2))
-            if self._walk:
+            if self._sharded:
+                res = self._update_sharded(deletions, insertions, variant)
+            elif self._walk:
                 res = self._update_walk(deletions, insertions)
             elif self._stream:
                 res = self._update_stream(deletions, insertions, variant)
@@ -1369,6 +1561,8 @@ class PageRankSession:
                               wall_time_s=time.perf_counter() - t0)
 
     def _recompute(self, variant: str) -> PagerankResult:
+        if self._sharded:
+            return self._recompute_sharded(variant)
         if self._walk:
             return self._recompute_walk(variant)
         if variant in ("df", "dt") and self._push:
@@ -1543,7 +1737,7 @@ class PageRankSession:
         escalates on failure and records a
         ``RecoveryRecord(domain="corruption")``."""
         self._ensure_open()
-        self._no_walk("verify()")
+        self._hosts_integrity("verify()")
         t0 = time.perf_counter()
         icfg = self._integrity_cfg()
         if repair is None:
@@ -1708,7 +1902,7 @@ class PageRankSession:
         fault on the session's corruption domain instead, for the next
         :meth:`update` to apply right before its batch."""
         self._ensure_open()
-        self._no_walk("inject_corruption()")
+        self._hosts_integrity("inject_corruption()")
         if isinstance(kind, fault_domain.CorruptionFault):
             fault = kind
         else:
@@ -1830,7 +2024,7 @@ class PageRankSession:
         ``len(vertices)`` values cross to the host."""
         self._ensure_open()
         idx = _vertex_ids(vertices, self.n)
-        vals = _gather(self.R, idx)
+        vals = _gather(self.R, self._inv[idx] if self._sharded else idx)
         self._queries += int(idx.shape[0])
         return vals
 
@@ -1839,9 +2033,10 @@ class PageRankSession:
         the device (ties: lower id first, as ``lax.top_k``)."""
         self._ensure_open()
         k = _top_k_count(k, self.n)
-        out = _top_k(self.R, self.valid, k)
+        vals, idx = _top_k(self.R, self.valid, k)
         self._queries += k
-        return out
+        # a sharded session's ids go back to the caller's vertex ids
+        return vals, self._order[idx] if self._sharded else idx
 
     def ppr_query(self, seeds, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(values, vertex ids) of the k highest **personalized** PageRank
@@ -1857,12 +2052,17 @@ class PageRankSession:
         self._queries += k
         return vals.cpu().numpy(), idx.cpu().numpy()
 
-    def _no_walk(self, what: str) -> None:
+    def _hosts_integrity(self, what: str) -> None:
         if self._walk:
             raise ValueError(
                 f"{what} checks the sweep engines' state; the walk engine "
                 "hosts no integrity checks (its only fault domain is "
                 "'process')")
+        if self._sharded:
+            raise NotImplementedError(
+                f"{what} on a sharded session is not ported yet: ROADMAP "
+                "item A 14b (the sharded session's fault handling) brings "
+                "it")
 
     def _read_view(self) -> ReadView:
         """The ranks-only copy a service serves degraded reads from."""
@@ -1874,7 +2074,12 @@ class PageRankSession:
         """Full host copy of the rank vector (prefer :meth:`query` /
         :meth:`top_k` for serving)."""
         self._ensure_open()
-        return self.R.cpu().numpy()
+        r = self.R.cpu().numpy()
+        if self._sharded:
+            out = np.zeros(self.n_pad, r.dtype)
+            out[self._order] = r[:self.n]
+            return out
+        return r
 
     # -- lifecycle -----------------------------------------------------------
     @property
@@ -1911,7 +2116,7 @@ class PageRankSession:
                      "_out_deg_host", "_hg_prev", "_g_prev", "_r_prev",
                      "store", "_process_domain", "pool", "hot",
                      "_deferred_rb", "_r_verified", "_corruption_faults",
-                     "walks"):
+                     "walks", "runtime"):
             setattr(self, attr, None)
 
     def __enter__(self) -> "PageRankSession":
@@ -1947,7 +2152,7 @@ class PageRankSession:
         if store.read_meta() is None:
             store.write_meta(self._meta())
         return store.checkpoint(
-            ranks=self.R[:self.n].cpu().numpy(), edges=self.hg.edges,
+            ranks=self.ranks[:self.n], edges=self.hg.edges,
             batch_index=self._batch_index)
 
     def _checkpoint_now(self) -> str:
@@ -2074,6 +2279,8 @@ class PageRankSession:
             new._out_deg_host = self._out_deg_host.copy()
         if self._walk:
             new.walks = self.walks.fork()
+        if self._sharded:
+            new.runtime = self.runtime.fork()
         return new
 
     # -- warmup / reporting --------------------------------------------------
@@ -2087,7 +2294,9 @@ class PageRankSession:
         kernels' build).  Snapshot-mode sessions are already warm from
         their initial solve."""
         self._ensure_open()
-        if self._walk:
+        if self._sharded:
+            self.runtime.warmup(self.R)
+        elif self._walk:
             self.walks.warmup()
         elif self._stream:
             z = np.zeros(1, np.int64)
@@ -2133,6 +2342,17 @@ class PageRankSession:
                 "scrub_interval_s": (float(icfg.scrub_interval_s)
                                      if icfg is not None else None),
             }
+        spec = self._shard_spec
+        wire = None
+        if spec is not None:
+            frac_full = (self._x_full / max(self._x_sweeps, 1)
+                         if spec.exchange == "delta" else 1.0)
+            wire = dist.collective_bytes_per_sweep(
+                n_pad=self.n_pad, n_dev=spec.n_shards,
+                exchange=spec.exchange,
+                rank_bytes=torch.finfo(self._dtype).bits // 8,
+                delta_capacity=spec.delta_capacity, expand=True,
+                frac_full=frac_full)
         return SessionReport(
             engine=self.engine_name, device=str(self.device),
             mode=self.config.mode, n_updates=len(hist),
@@ -2146,6 +2366,12 @@ class PageRankSession:
             queries_served=self._queries, wall_times_s=walls,
             batches_converged=sum(1 for r in hist if r.stats.converged),
             sweep_cap_hits=sum(1 for r in hist if not r.stats.converged),
+            topology=self.config.topology,
+            n_shards=spec.n_shards if spec is not None else None,
+            partitioner=spec.partitioner if spec is not None else None,
+            edge_cut=(self._cut_edges / max(self.hg.m, 1)
+                      if spec is not None else None),
+            collective_bytes_per_sweep=wire,
             durability=self.config.durability,
             recoveries=len(self._recoveries),
             recovery_time_s=sum(r.wall_time_s for r in self._recoveries),
@@ -2169,8 +2395,10 @@ class PageRankSession:
             integrity=integrity)
 
     def _device_bytes(self) -> Optional[dict]:
-        """Per-component device-resident bytes (the memory audit)."""
-        if self._closed:
+        """Per-component device-resident bytes (the memory audit); ``None``
+        for a sharded session, as in the reference (its traffic is the wire
+        model's)."""
+        if self._closed or self._sharded:
             return None
         if self._walk:
             return {"ranks": self.R.nbytes + self.valid.nbytes,

@@ -27,7 +27,7 @@ them.  Every recovery appends a :class:`RecoveryRecord` that
 that dies or stalls: :class:`SessionFault` schedules one
 (``PageRankService.inject_session_fault``, ``ChaosEvent.session_fault``),
 the service's watchdog reads :class:`SlotHeartbeat` and fails the slot
-over from its store.  The shard domain is ROADMAP item A 14.
+over from its store.  The shard domain is ROADMAP item A 14b.
 """
 from __future__ import annotations
 

@@ -643,8 +643,10 @@ def test_non_pallas_engines_reject_tile_operands(sdyn):
 def test_unknown_engine_error_lists_registered():
     with pytest.raises(ValueError, match="blocked.*dense.*pallas"):
         registry.resolve("not-an-engine")
-    # the walk engine registers since A 13
-    assert registry.names() == ("blocked", "dense", "pallas", "walk")
+    # the walk engine registers since A 13, the distributed engine since
+    # A 14a
+    assert registry.names() == ("blocked", "dense", "distributed", "pallas",
+                                "walk")
     assert registry.default_engine() == "pallas"
     eng = registry.resolve("blocked")
     assert isinstance(eng, registry.Engine)

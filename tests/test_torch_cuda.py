@@ -11,7 +11,9 @@ reading the packed hot slab) against the CPU, the integrity check
 finding and healing a flipped entry of the index the kernels read, and the
 walk kernels (``walk_regen``, ``walk_touch``) against their plain versions
 and a walk session on the card against the same session on the CPU (exact:
-the walks are integer and the draws counter-based).
+the walks are integer and the draws counter-based), and an 8-shard sharded
+session on the card against the CPU (kernel #1's launches counted per
+sweep, the ``recompute("df")`` replay bit-equal).
 
 Runs on a machine with a CUDA card and ``nvcc`` (no JAX needed):
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -1095,3 +1097,43 @@ def test_cuda_walk_session_matches_cpu(cuda_device):
     view = gpu._read_view()
     assert np.array_equal(view.ppr_query([5], 10)[1],
                           gpu.ppr_query([5], 10)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange,part", [("full", "contiguous"),
+                                           ("delta", "hash"),
+                                           ("full", "bfs_blocks")])
+def test_cuda_sharded_session_matches_cpu(cuda_device, exchange, part):
+    """An 8-shard session on the card takes the CPU session's batches:
+    counters equal, ranks within 1e-12 (kernel #1's sums in another order);
+    each sweep of a df update launches kernel #1 twice a shard (the pull and
+    the or-expansion) and nothing else; ``recompute("df")`` replays the
+    update bit for bit on the card; no build after warmup."""
+    from repro_torch.api import EngineConfig, PageRankSession
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import rmat
+    hg = rmat(12, avg_degree=6, seed=3)
+    cfg = EngineConfig(topology="sharded", n_shards=8, partitioner=part,
+                       exchange=exchange)
+    cpu = PageRankSession.from_graph(hg, config=cfg, device="cpu")
+    gpu = PageRankSession.from_graph(hg, config=cfg, device=cuda_device)
+    assert np.abs(cpu.ranks - gpu.ranks).max() <= 1e-12
+    gpu.warmup()
+    cur = hg
+    for i in range(4):
+        d, ins = random_batch(cur, 2e-3, seed=900 + i)
+        cur = cur.apply_batch(d, ins)
+        active0 = bsk.block_spmv_active_cuda.launches
+        full0 = bsk.block_spmv_cuda.launches
+        a, b = cpu.update(d, ins), gpu.update(d, ins)
+        assert (a.stats.sweeps, a.stats.edges_processed, a.converged) == \
+            (b.stats.sweeps, b.stats.edges_processed, b.converged)
+        assert bsk.block_spmv_cuda.launches - full0 == 16 * b.stats.sweeps
+        assert bsk.block_spmv_active_cuda.launches == active0
+        assert np.abs(cpu.ranks - gpu.ranks).max() <= 1e-12
+    assert (cpu._x_full, cpu._x_delta) == (gpu._x_full, gpu._x_delta)
+    replay = gpu.recompute("df")
+    assert torch.equal(replay.ranks, b.ranks)
+    assert gpu.report().retraces_post_warmup == 0
+    vals, idx = gpu.top_k(5)
+    assert np.array_equal(gpu.query(idx), vals)

@@ -25,7 +25,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.core.blocked", "repro_torch.core.fault_domain",
               "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
               "repro_torch.kernels.nvcc",
-              "repro_torch.kernels.blocked_sweep.blocked_sweep"):
+              "repro_torch.kernels.blocked_sweep.blocked_sweep",
+              "repro_torch.core.distributed", "repro_torch.graphs.partition",
+              "repro_torch.dist.compression"):
         assert m in mods
     code = (
         "import importlib, sys\n"

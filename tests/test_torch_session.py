@@ -218,7 +218,10 @@ def _walk_config_serves(kw: dict) -> None:
     # a stream with a budget runs since A 10a (pull) and A 10b (push): the
     # cases with item None construct
     ({"driver": "push", "device_budget_bytes": 1 << 20}, None),
-    ({"topology": "sharded"}, "A 14"),
+    # the sharded topology runs since A 14a: it constructs and resolves the
+    # distributed engine, as the reference's does (id kept from when it
+    # raised naming A 14)
+    pytest.param({"topology": "sharded"}, "sharded", id="kw1-A 14"),
     # the walk engine and its fields run since A 13: the cases with item
     # "walk" open a walk session that serves (ids kept from when they
     # raised naming A 13)
@@ -241,11 +244,24 @@ def _walk_config_serves(kw: dict) -> None:
      None),
     ({"engine": "dense", "fault_domain": _ProcessDomain()}, None),
     pytest.param({"engine": "walk"}, "walk", id="kw10-A 13"),
-    ({"engine": "distributed"}, "A 14"),
+    # engine="distributed" without topology="sharded" gets the reference's
+    # ValueError since A 14a (id kept from when it raised naming A 14)
+    pytest.param({"engine": "distributed"}, "refused", id="kw11-A 14"),
 ])
 def test_out_of_slice_config_raises(kw, item):
     if item == "walk":
         _walk_config_serves(kw)
+        return
+    if item == "sharded":
+        cfg, jcfg = TConfig(**kw), JConfig(**kw)
+        assert cfg.resolved_engine == jcfg.resolved_engine == "distributed"
+        assert cfg.resolved_n_shards == 1
+        return
+    if item == "refused":
+        with pytest.raises(ValueError, match="requires topology"):
+            JConfig(**kw)
+        with pytest.raises(ValueError, match="requires topology"):
+            TConfig(**kw)
         return
     if item is None:
         # ported: the config constructs, as the reference's does (whose

@@ -115,8 +115,10 @@ class TestRegistry:
     def test_unknown_engine_error_lists_registered(self):
         with pytest.raises(ValueError, match="dense.*pallas"):
             registry.resolve("not-an-engine")
-        # the walk engine registers since A 13
-        assert registry.names() == ("blocked", "dense", "pallas", "walk")
+        # the walk engine registers since A 13, the distributed engine since
+        # A 14a
+        assert registry.names() == ("blocked", "dense", "distributed", "pallas",
+                                    "walk")
         assert registry.default_engine() == "pallas"
         assert registry.resolve(None).name == "pallas"
 
