@@ -199,14 +199,32 @@ Phases, each of which raises (non-zero exit) on any failed check:
    L1 and L∞ to the oracle); ``hash`` and ``bfs_blocks`` sessions opened
    from phase 3's opening ranks and given batch 1 (within 1e-8 of the
    contiguous run; edge cut, live tiles per shard, card memory, the
-   partition's seconds).
+   partition's seconds);
+16. the sharded fault path in phase 15's setting (8 contiguous shards,
+   ``full``), with the launch counters zeroed just before and read at the
+   end: a session opened from phase 3's opening ranks takes phase 3's 8
+   ``df`` batches while shard 3 is lost after 2 sweeps of batch 3 (helped,
+   then re-partitioned onto 7 shards: one shard recovery with
+   ``helped_vertices > 0``, no build), shard 2 stalls on batch 6 (no
+   shrink) and a stale ``ShardFault(7)`` is dropped on batch 7; every
+   batch within 1e-8 of phase 15's unfaulted ranks after it, the last of
+   phase 3's; the faulted batch's sweeps, host syncs, kernel #1 launches
+   (16 a sweep before the crash, 14 after), the recovery's seconds and the
+   card's peak memory across the shrink are printed.  A durable 8-shard
+   session (checkpoint every 3 batches) takes 4 batches and is dropped
+   without ``close()``; its store restores onto 8 shards (within 1e-12 of
+   the live ranks, bit for bit or not), onto 4 (1e-8) and onto one device
+   with the pallas engine (1e-8), each replaying one batch.  An
+   ``integrity=`` sharded session verifies clean with the 4 rank
+   invariants and refuses a ``tile`` corruption with ``ValueError``.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
 path's (phase 8), the durable path's (phase 9), the tiered path's
 (phase 10), the tiered push path's (phase 11), the integrity path's
 (phase 12), the serving path's (phase 13), the walk path's (phase 14;
-the walk kernels run only there) and the sharded path's (phase 15).
+the walk kernels run only there), the sharded path's (phase 15) and the
+sharded fault path's (phase 16).
 Prints the kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -223,6 +241,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -3593,6 +3612,214 @@ def _sharded_phase(bsk, ops, hg, hg_ref, batches, nd_batch, p3: dict,
           f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
     _check(launches["block_spmv"] > 0, "the sharded path launched no "
            "block_spmv")
+    return launches, full
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the sharded fault path on the main path's graph
+# ---------------------------------------------------------------------------
+
+FAULT_BATCH = 2                  # shard 3 lost after 2 sweeps of batch 3
+FAULT_SHARD, FAULT_SWEEP = 3, 2
+STALL_BATCH, STALE_BATCH = 5, 6  # shard 2 stalls; a stale ShardFault(7)
+
+
+def _faulted_stream(bsk, hg, batches, base: dict, p3: dict, full: dict,
+                    smi: str) -> None:
+    """Phase 3's 8 df batches through an 8-shard session opened from phase
+    3's opening ranks, with a permanent loss, a stall and a stale fault;
+    every batch held to phase 15's unfaulted ranks after it."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core.fault_domain import ShardFault
+    torch.cuda.synchronize()
+    mem_base = torch.cuda.memory_allocated()
+    sess = PageRankSession.from_graph(
+        hg, config=EngineConfig(**base), r0=p3["r_open"][:hg.n],
+        device="cuda")
+    sess.warmup()
+    for i, (dels, ins) in enumerate(batches):
+        if i == FAULT_BATCH:
+            sess.inject_shard_fault(FAULT_SHARD, at_sweep=FAULT_SWEEP,
+                                    permanent=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+        elif i == STALL_BATCH:
+            sess.inject_shard_fault(2, at_sweep=FAULT_SWEEP, permanent=False)
+        elif i == STALE_BATCH:
+            # the race a shrink leaves: shard 7 no longer exists
+            sess._shard_faults._pending.append(ShardFault(7))
+        recs0 = sess.report().recoveries
+        launched0 = bsk.block_spmv_cuda.launches
+        builds0 = sess.runtime.cache_size()
+        res = sess.update(dels, ins, variant="df")
+        torch.cuda.synchronize()
+        launched = bsk.block_spmv_cuda.launches - launched0
+        # driver_retraces is 0 on a consumed fault by the reference's rule,
+        # so the builds are read around the batch itself
+        builds = sess.runtime.cache_size() - builds0
+        rep = sess.report()
+        err = _linf(sess.ranks, full["ranks"][i], sess.n)
+        line = (f"shard fault df update {i}: {res.wall_time_s * 1e3:.2f} ms,"
+                f" sweeps {res.stats.sweeps} (unfaulted: "
+                f"{full['sweeps'][i]}), host syncs {res.host_syncs}, kernel "
+                f"#1 launches {launched}, shards {rep.n_shards}; L_inf "
+                f"{err:.3e} to phase 15's")
+        _check(res.converged and err <= 1e-8,
+               f"shard fault df update {i} is {err} off phase 15's")
+        _check(res.driver_retraces == 0 and builds == 0,
+               f"shard fault df update {i} built {builds} kernel(s)")
+        if i == FAULT_BATCH:
+            peak = torch.cuda.max_memory_allocated() - mem_base
+            ev = rep.recovery_events[-1]
+            rec = ev["recovery_sweeps"]
+            line += (f"; recovery: {FAULT_SWEEP} sweeps on 8 shards, then "
+                     f"{rec} on {rep.n_shards} ({ev['description']}), "
+                     f"{ev['helped_vertices']} helped vertices, "
+                     f"{ev['wall_time_s']:.3f} s (the shrink and the "
+                     f"recovery drive, {launched - 2 * N_SHARDS * FAULT_SWEEP}"
+                     f" kernel #1 launches); the session's card peak "
+                     f"across the shrink {peak / 1e9:.3f} GB (it held "
+                     f"{(mem0 - mem_base) / 1e9:.3f} GB before it)")
+            _check(rep.recoveries == recs0 + 1 and ev["domain"] == "shard"
+                   and ev["permanent"] and rep.n_shards == N_SHARDS - 1,
+                   f"the loss of shard {FAULT_SHARD} recorded {ev}, "
+                   f"{rep.n_shards} shards")
+            _check(ev["helped_vertices"] > 0 and rec > 0,
+                   f"no shard helping: {ev}")
+            _check(res.stats.sweeps == FAULT_SWEEP + rec
+                   and res.host_syncs == res.stats.sweeps + 1
+                   and launched == 2 * (N_SHARDS * FAULT_SWEEP
+                                        + (N_SHARDS - 1) * rec),
+                   f"the faulted batch: {res.stats.sweeps} sweeps, "
+                   f"{res.host_syncs} syncs, {launched} kernel #1 launches")
+        elif i == STALL_BATCH:
+            ev = rep.recovery_events[-1]
+            line += (f"; stall of shard 2: {ev['helped_vertices']} helped, "
+                     f"{ev['recovery_sweeps']} recovery sweeps, "
+                     f"{ev['wall_time_s']:.3f} s")
+            _check(rep.recoveries == recs0 + 1 and not ev["permanent"]
+                   and rep.n_shards == N_SHARDS - 1,
+                   f"the stall of shard 2 recorded {ev}, {rep.n_shards} "
+                   "shards")
+        else:
+            _check(rep.recoveries == recs0,
+                   f"df update {i} recorded a recovery (stale fault?)")
+        print(line + f" [{smi}]", flush=True)
+    err = _linf(sess.ranks, p3["r_df"], sess.n)
+    print(f"shard fault stream: L_inf {err:.3e} to phase 3's ranks after "
+          f"its 8 df batches; {sess.report().recoveries} recoveries "
+          f"[{smi}]", flush=True)
+    _check(err <= 1e-8, f"the faulted stream ends {err} off phase 3's")
+    sess.close()
+
+
+def _durable_sharded(hg, batches, base: dict, p3: dict, full: dict,
+                     smi: str) -> None:
+    """A durable 8-shard session, dropped after 4 batches, restored onto 8
+    and 4 shards and onto one device."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as store:
+        sess = PageRankSession.from_graph(
+            hg, config=EngineConfig(**base, durability="wal",
+                                    checkpoint_interval=3),
+            r0=p3["r_open"][:hg.n], device="cuda", store_dir=store)
+        sess.warmup()
+        walls = []
+        for dels, ins in batches[:4]:
+            res = sess.update(dels, ins, variant="df")
+            torch.cuda.synchronize()
+            _check(res.converged, "a durable sharded update did not "
+                   "converge")
+            walls.append(res.wall_time_s * 1e3)
+        live = sess.ranks
+        _check(sess.store.latest_checkpoint_index == 3,
+               "the durable sharded session did not checkpoint at batch 3")
+        print(f"durable sharded df updates 0-3: "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms (batch 3 with "
+              f"its checkpoint), p50 {np.percentile(walls, 50):.2f} ms "
+              f"beside phase 15's df p50 "
+              f"{np.percentile(full['walls'], 50):.2f} ms [{smi}]",
+              flush=True)
+        del sess, res                  # crash-stop: no close()
+        torch.cuda.empty_cache()
+        for name, cfg, tol in (
+                ("8 shards", None, 1e-12),
+                ("4 shards", EngineConfig(**dict(base, n_shards=4)), 1e-8),
+                ("one device (pallas)",
+                 EngineConfig(engine="pallas", block_size=BLOCK,
+                              dtype=torch.float64, tau=TAU), 1e-8)):
+            t0 = time.perf_counter()
+            rest = PageRankSession.restore(store, config=cfg,
+                                           device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rep = rest.report()
+            err = _linf(rest.ranks, live, rest.n)
+            same = bool(np.array_equal(rest.ranks[:rest.n], live[:rest.n]))
+            print(f"sharded restore onto {name}: {wall:.3f} s wall, "
+                  f"recovery_time_s {rep.recovery_time_s:.3f}, replayed "
+                  f"{rep.replayed_batches}; L_inf {err:.3e} to the live "
+                  f"ranks, bit for bit: {same} [{smi}]", flush=True)
+            _check(rep.replayed_batches == 1 and err <= tol,
+                   f"the restore onto {name}: {rep.replayed_batches} "
+                   f"replayed, {err} off the live ranks")
+            rest.close()
+            del rest
+            torch.cuda.empty_cache()
+
+
+def _sharded_integrity(hg, batches, base: dict, p3: dict, smi: str) -> None:
+    """``integrity=`` on an 8-shard session: a clean verify runs the 4
+    rank invariants; a stream-state corruption is refused."""
+    from repro_torch.api.config import EngineConfig
+    from repro_torch.api.session import PageRankSession
+    from repro_torch.core.integrity import IntegrityConfig
+    sess = PageRankSession.from_graph(
+        hg, config=EngineConfig(**base, integrity=IntegrityConfig(
+            mass_tol=hg.n * TAU)), r0=p3["r_open"][:hg.n], device="cuda")
+    res = sess.update(*batches[0], variant="df")
+    rep = sess.verify()
+    try:
+        sess.inject_corruption("tile")
+        refused = "accepted"
+    except ValueError as e:
+        refused = f"ValueError ({e})"
+    print(f"sharded integrity: df update {res.wall_time_s * 1e3:.2f} ms; "
+          f"verify ok {rep.ok}, checks_run {rep.checks_run}, "
+          f"{rep.wall_time_s * 1e3:.1f} ms, mass error {rep.mass_error:.3e};"
+          f" inject_corruption('tile'): {refused[:90]} [{smi}]", flush=True)
+    _check(res.converged and rep.ok and rep.checks_run == 4,
+           f"the sharded verify: {rep}")
+    _check(refused.startswith("ValueError"),
+           "a tile corruption was accepted on a sharded session")
+    sess.close()
+
+
+def _shard_fault_phase(bsk, hg, batches, p3: dict, full: dict,
+                       smi: str) -> dict:
+    """Phase 16 in phase 15's setting, launch counters zeroed just before
+    and read at the end.  Returns the launches."""
+    t_phase = time.perf_counter()
+    base = dict(topology="sharded", n_shards=N_SHARDS, block_size=BLOCK,
+                dtype=torch.float64, tau=TAU, partitioner="contiguous",
+                exchange="full")
+    bsk.block_spmv_cuda.launches = 0
+    bsk.block_spmv_active_cuda.launches = 0
+    _faulted_stream(bsk, hg, batches, base, p3, full, smi)
+    torch.cuda.empty_cache()
+    _durable_sharded(hg, batches, base, p3, full, smi)
+    torch.cuda.empty_cache()
+    _sharded_integrity(hg, batches, base, p3, smi)
+    torch.cuda.empty_cache()
+    launches = {"block_spmv": bsk.block_spmv_cuda.launches,
+                "block_spmv_active": bsk.block_spmv_active_cuda.launches}
+    print(f"launches on the sharded fault path: {launches}; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    _check(launches["block_spmv"] > 0, "the sharded fault path launched no "
+           "block_spmv")
     return launches
 
 
@@ -3802,15 +4029,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 15: the sharded session, same graph and batches --------------
-    shard_launches = _sharded_phase(bsk, ops, hg, hg_ref, batches, nd_batch,
-                                    p3, smi)
+    shard_launches, full = _sharded_phase(bsk, ops, hg, hg_ref, batches,
+                                          nd_batch, p3, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 16: the sharded fault path, same graph and batches -----------
+    fault_launches = _shard_fault_phase(bsk, hg, batches, p3, full, smi)
     for row in table:
         row["launches"] = sum(
             path[row["name"]] for path in (
                 launches, push_launches, var_launches, blk_launches,
                 dur_launches, tier_launches, tpush_launches,
                 integ_launches, serve_launches, walk_launches,
-                shard_launches))
+                shard_launches, fault_launches))
     table.append(sweep_row)
     table.extend(walk_rows)
     print(f"total {time.perf_counter() - t_start:.1f} s [{smi}]", flush=True)

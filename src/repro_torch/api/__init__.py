@@ -1,8 +1,5 @@
-"""Session API of the port (ports ``src/repro/api``): the ported subset of
-the reference's public surface.
-
-Names of ``repro.api.__all__`` that a later slice brings are absent: the
-shard domain (``ShardFault``, ``ShardFaultDomain``: ROADMAP A 14b).
+"""Session API of the port (ports ``src/repro/api``): the reference's
+public surface, every name of ``repro.api.__all__``.
 """
 from repro_torch.api.config import EngineConfig, ServingConfig
 from repro_torch.api import registry
@@ -16,6 +13,7 @@ from repro_torch.core.chaos import ChaosEvent, ChaosPlan
 from repro_torch.core.fault_domain import (CorruptionFault,
                                            CorruptionFaultDomain,
                                            RecoveryRecord, SessionFault,
+                                           ShardFault, ShardFaultDomain,
                                            ThreadFaultDomain)
 from repro_torch.core.integrity import IntegrityConfig, IntegrityReport
 
@@ -38,6 +36,8 @@ __all__ = [
     "SessionFault",
     "SessionReport",
     "SessionStore",
+    "ShardFault",
+    "ShardFaultDomain",
     "StreamBatchResult",
     "SweepCapWarning",
     "ThreadFaultDomain",

@@ -4,22 +4,20 @@
 Same fields and the same construction-time validation as the JAX config.
 ``engine`` resolves through :mod:`repro_torch.api.registry` (``None`` →
 ``"pallas"``, or a ``REPRO_ENGINE`` override, validated eagerly;
-``topology="sharded"`` resolves ``"distributed"``).  Values that belong to
-later slices of the port raise ``NotImplementedError`` at construction,
-naming the ROADMAP item (queue A) that brings them; a config that
+``topology="sharded"`` resolves ``"distributed"``).  A config that
 constructs is one the port runs: ``device_budget_bytes`` tiers a stream
 under either driver, and ``topology="sharded"`` runs ``n_shards`` logical
-shards.  Every refusal the reference makes for good comes first, with the
-reference's ``ValueError``.  ``fault_domain=`` takes a
+shards, durable or with ``integrity=`` as well.  ``fault_domain=`` takes a
 :class:`~repro_torch.core.fault_domain.ThreadFaultDomain` (the same as
-``faults=`` its plan) or a
+``faults=`` its plan), a
 :class:`~repro_torch.core.fault_domain.CorruptionFaultDomain` (the pallas
-engine's), and any other domain the resolved engine declares, as the
-reference does.  The process domain comes from ``durability="wal"`` with a
-session's ``store_dir=``; a ``ProcessFaultDomain`` given as
-``fault_domain=`` gets the reference's ``ValueError``.  A domain named
-``"shard"``, and ``durability="wal"`` or ``integrity=`` on a sharded
-topology, are a later slice (A 14b).  ``integrity=`` takes an
+engine's) or a :class:`~repro_torch.core.fault_domain.ShardFaultDomain`
+(the sharded topology's), and any other domain the resolved engine
+declares, as the reference does: the domain's ``validate_for`` first, then
+the engine's declared domains.  The process domain comes from
+``durability="wal"`` with a session's ``store_dir=``; a
+``ProcessFaultDomain`` given as ``fault_domain=`` gets the reference's
+``ValueError``.  ``integrity=`` takes an
 :class:`~repro_torch.core.integrity.IntegrityConfig` or its kwargs dict
 (the form a store's meta round-trips) and is coerced to the former.
 
@@ -62,23 +60,6 @@ DURABILITIES = ("none", "wal")
 #   "reject"      — refuse the NEW submit (caller sees AdmissionRejected);
 #   "drop_oldest" — shed the oldest queued request to admit the new one
 SHED_POLICIES = ("reject", "drop_oldest")
-# ROADMAP queue-A items that bring the values this slice rejects
-_LATER = {
-    "fault_domain": "A 14b (the shard fault domain)",
-    "sharded:durability": "A 14b (durable and elastic sharded sessions)",
-    "sharded:integrity": "A 14b (the sharded session's fault handling)",
-}
-
-
-def _later(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP item {_LATER[key]} brings it; "
-        "the port runs the single-device session (pallas engine with the "
-        "pull or push driver, tiered or not; blocked, dense and walk "
-        "engines; the thread, process and corruption fault domains; "
-        "integrity=) and the sharded stream session (topology='sharded', "
-        "no fault domain, not durable)")
-
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -231,25 +212,22 @@ class EngineConfig:
                 raise ValueError(
                     "integrity invariants instrument the pull iterate; "
                     "driver='push' does not support integrity=")
-        # -- fault domains: the reference's checks come before the
-        # later-slice refusals, so a thread domain on a sharded topology
-        # gets the reference's ValueError
+        # -- fault domains: the domain's own topology rule, then the
+        # engine's declared domains
         if self.fault_domain is not None:
             from repro_torch.core.fault_domain import FaultDomain
             if not isinstance(self.fault_domain, FaultDomain):
                 raise ValueError(
                     "fault_domain must be a repro_torch.core.fault_domain."
-                    "FaultDomain (ThreadFaultDomain / CorruptionFaultDomain)"
-                    f", got {type(self.fault_domain).__name__}")
+                    "FaultDomain (ThreadFaultDomain / ShardFaultDomain / "
+                    f"CorruptionFaultDomain), got "
+                    f"{type(self.fault_domain).__name__}")
             if self.faults is not None:
                 raise ValueError(
                     "faults= and fault_domain= are mutually exclusive — "
                     "faults=plan is shorthand for "
                     "fault_domain=ThreadFaultDomain(plan)")
             self.fault_domain.validate_for(topology=self.topology)
-            if self.fault_domain.name == "shard":
-                kind = type(self.fault_domain).__name__
-                raise _later(f"fault_domain={kind}", "fault_domain")
             eng = registry.resolve(eng_name)
             if self.fault_domain.name not in registry.fault_domains_of(eng):
                 raise ValueError(
@@ -292,15 +270,6 @@ class EngineConfig:
                     "integrity checks instrument the stream-mode "
                     f"pull-matrix state; engine {eng.name!r} does not "
                     "host them (integrity must be None)")
-        # -- what the reference accepts on a sharded topology and a later
-        # slice brings
-        if self.topology == "sharded":
-            if self.durability == "wal":
-                raise _later("durability='wal' with topology='sharded'",
-                             "sharded:durability")
-            if self.integrity is not None:
-                raise _later("integrity= with topology='sharded'",
-                             "sharded:integrity")
 
     def _engine_for_resolution(self) -> Optional[str]:
         """Topology-aware engine name: a sharded config always resolves the

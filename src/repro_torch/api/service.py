@@ -1014,6 +1014,11 @@ class PageRankService:
             if rep.driver == "push":
                 row["residual_mass_last"] = rep.residual_mass_last
                 row["pushed_blocks"] = rep.pushed_blocks
+            if rep.topology == "sharded":
+                row["topology"] = rep.topology
+                row["n_shards"] = rep.n_shards
+                row["partitioner"] = rep.partitioner
+                row["edge_cut"] = rep.edge_cut
             if rep.durability != "none" or rep.recoveries:
                 row["durability"] = rep.durability
                 row["recoveries"] = rep.recoveries

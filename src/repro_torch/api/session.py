@@ -21,7 +21,8 @@ ranks-only copy degraded reads are served from), and the walk mode
 (``_init_walk``, ``_update_walk``, ``_recompute_walk``, ``ppr_query``), and
 the sharded mode (``_init_sharded``, ``_crossing``, ``_sharded_affected``,
 ``_update_sharded``, ``_recompute_sharded``; ``report()``'s topology
-fields)::
+fields) with its shard fault domain (``inject_shard_fault``,
+``_drive_with_shard_fault``), durability and ``integrity=``::
 
     from repro_torch.api.session import PageRankSession
     from repro_torch.api.config import EngineConfig
@@ -53,6 +54,8 @@ fields)::
     sharded = PageRankSession.from_graph(
         hg, config=EngineConfig(topology="sharded", n_shards=8))
     sharded.update(dels, ins)       # routed to the owning shards' matrices
+    sharded.inject_shard_fault(3, at_sweep=2)   # shard 3 dies mid-drive
+    sharded.update(dels2, ins2)     # helped, then re-partitioned onto 7
 
 Four modes, picked at construction:
 
@@ -89,9 +92,17 @@ Four modes, picked at construction:
   stale-synchronous sweep (each shard's pull and expansion on the tile
   SpMV kernel, the exchange as copies).  Ranks stay in the relabeled space
   on the device; ``query``, ``top_k`` and ``ranks`` translate back.  The
-  edge cut is kept in O(batch) per update.  A shard fault domain,
-  ``durability="wal"`` and ``integrity=`` are a later slice (A 14b):
-  ``verify`` and ``inject_corruption`` raise.
+  edge cut is kept in O(batch) per update.  A shard that crashes or stalls
+  mid-drive (``inject_shard_fault``, or a ``ShardFaultDomain`` on the
+  config) is recovered by helping inside the same ``update``: the drive
+  stops at the fault's sweep, the dead shard's affected rows join the
+  unconverged ones, a permanent loss re-partitions onto the survivors
+  (``DistRuntime.shrink``), and the drive resumes from the mid-crash
+  ranks.  A durable sharded session checkpoints caller-order ranks, so
+  ``restore`` rescales it onto any ``n_shards`` or onto one device.
+  ``verify`` runs the four rank invariants only, as the reference's does,
+  and its frontier rung raises the reference's ``ValueError`` (no
+  snapshot to solve on).
 
 One ordering differs from the reference, because the port patches the tile
 pool and its packed index in place: the DF seed's OR pass over G^{t-1} runs
@@ -461,6 +472,14 @@ class SessionReport:
     integrity: Optional[dict] = None            # checks, detections, rungs
 
 
+def _device_id(dev: torch.device) -> int:
+    """A device's id as ``device_footprint`` reports it: the card's index
+    (``"cuda"`` without one is the current card), 0 for the CPU."""
+    if dev.type != "cuda":
+        return 0
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 class PageRankSession:
     """Stateful PageRank handle owning the graph state, the resolved engine
     and the ranks.  Construct via :meth:`from_graph` (streams and serving)
@@ -536,6 +555,15 @@ class PageRankSession:
         # seconds the last dt update or df/dt replay spent building its
         # two snapshots (host build and copy to the device)
         self._snap_s = 0.0
+        # -- the shard domain: each session consumes its own clone of the
+        # schedule riding the shareable frozen config
+        self._shard_faults: Optional[fault_domain.ShardFaultDomain] = None
+        if self._sharded:
+            self._shard_faults = (
+                config.fault_domain.clone()
+                if isinstance(config.fault_domain,
+                              fault_domain.ShardFaultDomain)
+                else fault_domain.ShardFaultDomain())
         # -- durability / the process fault domain ---------------------------
         self._recoveries: List[fault_domain.RecoveryRecord] = []
         self._batch_index = 0       # update batches applied (the WAL key)
@@ -589,6 +617,16 @@ class PageRankSession:
             self._init_stream(r0)
         else:
             self._init_snapshot(g, r0)
+        # a config-carried shard schedule is checked against the real shard
+        # count now that it exists — never mid-update (see
+        # inject_shard_fault)
+        if self._shard_faults is not None:
+            bad = [f.shard for f in self._shard_faults.pending_faults
+                   if not 0 <= f.shard < self.runtime.n_dev]
+            if bad:
+                raise ValueError(
+                    f"ShardFaultDomain schedules shard(s) {bad} outside "
+                    f"the {self.runtime.n_dev}-shard mesh")
         # durable bootstrap: a fresh store gets the meta and a checkpoint of
         # the born state (batch 0), so a crash before the first update
         # already restores; restore() attaches to a populated store
@@ -1385,8 +1423,10 @@ class PageRankSession:
         route it to its owning shards (host bookkeeping, then each touched
         shard's matrix and degree slices patched), seed the frontier and
         re-enter the cached sweep.  The ranks never leave the device; each
-        sweep reads one stats vector (``host_syncs`` counts them, and a
-        ``dt`` marking's reads)."""
+        sweep reads one stats vector (``host_syncs`` counts them, a ``dt``
+        marking's reads and a shard recovery's one).  A scheduled shard
+        fault is consumed here; its kernel builds (none: a shrink only
+        rebuilds the shard matrices) count no ``driver_retraces``."""
         t0 = time.perf_counter()
         builds0 = self.runtime.cache_size()
         dels = np.asarray(deletions, np.int64).reshape(-1, 2)
@@ -1410,15 +1450,122 @@ class PageRankSession:
         affected, seed_syncs = self._sharded_affected(
             variant, hg_rel_prev, dels_rel, ins_rel)
         R0 = self._on_valid(1.0 / self.n) if variant == "static" else self.R
-        self.R, dstats = self.runtime.drive(
-            R0, affected, expand=(variant == "df"),
-            max_sweeps=self.config.max_iterations)
+        fault = self._shard_faults.pop_pending()
+        if fault is None:
+            self.R, dstats = self.runtime.drive(
+                R0, affected, expand=(variant == "df"),
+                max_sweeps=self.config.max_iterations)
+            recovery_syncs = 0
+        else:
+            self.R, dstats, recovery_syncs = self._drive_with_shard_fault(
+                R0, affected, expand=(variant == "df"), fault=fault)
         return StreamBatchResult(
             ranks=self.R, stats=self._sharded_result(dstats),
             wall_time_s=time.perf_counter() - t0,
             batch_edges=len(dels) + len(ins),
-            driver_retraces=self.runtime.cache_size() - builds0,
-            host_syncs=dstats.sweeps + seed_syncs)
+            # a consumed fault's recovery is accounted in report()'s
+            # recovery_events, not the stream's retrace counter
+            driver_retraces=(0 if fault is not None
+                             else self.runtime.cache_size() - builds0),
+            host_syncs=dstats.sweeps + seed_syncs + recovery_syncs)
+
+    # -- the shard fault domain -------------------------------------------
+    def inject_shard_fault(self, shard: int, *, at_sweep: int = 1,
+                           permanent: bool = True) -> None:
+        """Schedule one shard failure, consumed by the next :meth:`update`:
+        the drive runs normally for ``at_sweep`` sweeps, then shard
+        ``shard`` crash-stops (``permanent=True``, the shards shrink around
+        it) or stalls and rejoins (``permanent=False``).  Recovery — the
+        paper's helping generalized to shards — happens inside the same
+        update call; :meth:`report` records it."""
+        self._ensure_open()
+        if not self._sharded:
+            raise ValueError(
+                "shard faults require topology='sharded' (single-device "
+                "sessions take a thread-domain FaultPlan instead)")
+        # validated here, not mid-update: a fault consumed after the batch
+        # has mutated graph state must never be what raises
+        if not (0 <= int(shard) < self.runtime.n_dev):
+            raise ValueError(f"shard {shard} out of range (mesh has "
+                             f"{self.runtime.n_dev} shards)")
+        self._shard_faults.inject(shard, at_sweep=at_sweep,
+                                  permanent=permanent)
+
+    def _drive_with_shard_fault(self, R0, affected, *, expand: bool,
+                                fault: "fault_domain.ShardFault"
+                                ) -> Tuple[torch.Tensor, "dist.DistStats",
+                                           int]:
+        """One sharded drive interrupted by a shard failure after
+        ``fault.at_sweep`` sweeps, then recovered by shard helping:
+
+        1. the drive is suspended at the crash point with its per-vertex
+           affected and still-unconverged flags;
+        2. the dead shard's affected rows (its last sweep's writes cannot
+           be trusted) join the unconverged rows: the help mask, formed on
+           the device;
+        3. a permanent loss re-partitions onto the surviving shards
+           (:meth:`~repro_torch.core.distributed.DistRuntime.shrink`,
+           which rebuilds the shard matrices from the host edge log);
+        4. the drive resumes, expanding, from the mid-crash ranks with the
+           help mask as its unconverged set.
+
+        Returns ``(R, the two drives' summed stats, host reads beyond one
+        a sweep)``: the help count is the one read.  A fault made stale by
+        an earlier shrink is dropped, and a permanent loss of the last
+        shard degrades to a stall: a consumed fault never raises, since the
+        batch is already applied."""
+        cfg = self.config
+        rt = self.runtime
+        if not (0 <= fault.shard < rt.n_dev):
+            R, st = rt.drive(R0, affected, expand=expand,
+                             max_sweeps=cfg.max_iterations)
+            return R, st, 0
+        if fault.permanent and rt.n_dev == 1:
+            fault = dataclasses.replace(fault, permanent=False)
+        phase1 = max(1, min(int(fault.at_sweep), cfg.max_iterations))
+        R_mid, st1, (aff_mid, rc_mid) = rt.drive(
+            R0, affected, expand=expand, max_sweeps=phase1,
+            collect_state=True)
+        if st1.converged:           # the crash falls after convergence
+            return R_mid, st1, 0
+        t0 = time.perf_counter()
+        n = self.n
+        lo, hi = rt.owned_range(fault.shard)
+        dead = torch.zeros(n, dtype=torch.bool, device=aff_mid.device)
+        dead[lo:hi] = True
+        aff = aff_mid[:n]
+        help_mask = rc_mid[:n] | (dead & aff)
+        helped = int((help_mask & dead).sum())
+        if fault.permanent:
+            rt2 = rt.shrink(fault.shard)
+            self.runtime = rt2
+            self._shard_spec = dataclasses.replace(self._shard_spec,
+                                                   n_shards=rt2.n_dev)
+            self.n_pad = rt2.n_pad
+            self.valid = rt2.valid
+            # the ownership boundaries moved: recount the edge cut
+            self._cut_edges = self._crossing(self._hg_rel.edges)
+        else:
+            rt2 = rt
+        # length-n state: the drive pads it to the (new) n_pad and masks it
+        # with the valid vertices
+        R, st2 = rt2.drive(R_mid[:n], aff | help_mask, expand=True,
+                           rc0=help_mask, max_sweeps=cfg.max_iterations)
+        wall = time.perf_counter() - t0
+        self._recoveries.append(fault_domain.RecoveryRecord(
+            domain="shard", batch_index=self._batch_index + 1,
+            wall_time_s=wall, shard=fault.shard, permanent=fault.permanent,
+            helped_vertices=helped, recovery_sweeps=st2.sweeps,
+            description=(
+                f"shard {fault.shard} "
+                f"{'lost — elastic re-partition to' if fault.permanent else 'stalled — rejoined,'} "
+                f"{rt2.n_dev} shards; {helped} un-converged rows helped")))
+        stats = dist.DistStats(
+            sweeps=st1.sweeps + st2.sweeps, converged=st2.converged,
+            full_exchanges=st1.full_exchanges + st2.full_exchanges,
+            delta_exchanges=st1.delta_exchanges + st2.delta_exchanges,
+            edges_processed=st1.edges_processed + st2.edges_processed)
+        return R, stats, 1
 
     def _recompute_sharded(self, variant: str) -> PagerankResult:
         """Sharded re-solve through the cached sweep, with the variant
@@ -2058,11 +2205,6 @@ class PageRankSession:
                 f"{what} checks the sweep engines' state; the walk engine "
                 "hosts no integrity checks (its only fault domain is "
                 "'process')")
-        if self._sharded:
-            raise NotImplementedError(
-                f"{what} on a sharded session is not ported yet: ROADMAP "
-                "item A 14b (the sharded session's fault handling) brings "
-                "it")
 
     def _read_view(self) -> ReadView:
         """The ranks-only copy a service serves degraded reads from."""
@@ -2090,11 +2232,13 @@ class PageRankSession:
     def device_footprint(self) -> Tuple[int, ...]:
         """Ids of the devices this session's state occupies: the card's
         index on CUDA, ``(0,)`` on the CPU (as the reference gives there),
-        ``()`` once closed."""
+        ``()`` once closed.  A sharded session spans its shards' distinct
+        devices: with logical shards on one card, that card alone."""
         if self._closed:
             return ()
-        dev = self.R.device
-        return (dev.index,) if dev.type == "cuda" else (0,)
+        devices = (self.runtime.mesh.devices if self._sharded
+                   else (self.R.device,))
+        return tuple(sorted({_device_id(d) for d in devices}))
 
     def _ensure_open(self) -> None:
         if self._closed:
@@ -2257,6 +2401,8 @@ class PageRankSession:
         new._scatter_fault = None
         if self._corruption_faults is not None:
             new._corruption_faults = fault_domain.CorruptionFaultDomain()
+        if self._shard_faults is not None:
+            new._shard_faults = fault_domain.ShardFaultDomain()
         for attr in ("R", "valid", "_residual", "_r_prev", "_out_deg",
                      "_rb_in", "_rb_out", "_bmat"):
             t = getattr(self, attr, None)

@@ -141,8 +141,8 @@ class Checkpointer:
         if shardings is not None:
             raise NotImplementedError(
                 "shardings= places a restore on a device mesh: ROADMAP item "
-                "A 14b (restore onto another shard count) brings it to the "
-                "port")
+                "A 15b (the trainer and dist/sharding.py, its only caller) "
+                "brings it to the port")
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)

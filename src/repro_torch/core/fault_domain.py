@@ -1,6 +1,7 @@
-"""Fault domains of the port: the thread, process and corruption domains
-(ports ``DOMAINS``, ``RecoveryRecord``, ``FaultDomain``,
-``ThreadFaultDomain``, ``ProcessFaultDomain``, ``SessionFault``,
+"""Fault domains of the port: the thread, shard, process, session and
+corruption domains (ports ``DOMAINS``, ``RecoveryRecord``, ``FaultDomain``,
+``ThreadFaultDomain``, ``ShardFault``, ``ShardFaultDomain``,
+``ProcessFaultDomain``, ``SessionFault``,
 ``CORRUPTION_KINDS``, ``CorruptionFault``, ``CorruptionFaultDomain``,
 ``SlotHeartbeat`` and ``resolve_thread_plan`` from
 ``src/repro/core/fault_domain.py``).
@@ -11,6 +12,14 @@ crash-stop, and surviving capacity re-covers their blocks on later sweeps.
 :class:`~repro_torch.core.faults.FaultPlan` behind the domain interface:
 ``EngineConfig(fault_domain=ThreadFaultDomain(plan))`` is the same as
 ``EngineConfig(faults=plan)``.
+
+The shard domain is one shard of a ``topology="sharded"`` session that
+crashes or stalls mid-drive.  Recovery is the paper's helping one level
+up: the surviving shards re-mark the dead shard's unconverged rows as
+affected and drive them to convergence; a permanent loss also
+re-partitions the vertex space onto the survivors
+(:meth:`repro_torch.core.distributed.DistRuntime.shrink`).
+:class:`ShardFaultDomain` is the deterministic injection schedule.
 
 The process domain is crash-stop of the whole job; its recovery is
 durability: a :class:`~repro_torch.ckpt.checkpoint.SessionStore` holds
@@ -27,7 +36,7 @@ them.  Every recovery appends a :class:`RecoveryRecord` that
 that dies or stalls: :class:`SessionFault` schedules one
 (``PageRankService.inject_session_fault``, ``ChaosEvent.session_fault``),
 the service's watchdog reads :class:`SlotHeartbeat` and fails the slot
-over from its store.  The shard domain is ROADMAP item A 14b.
+over from its store.
 """
 from __future__ import annotations
 
@@ -106,6 +115,58 @@ class ThreadFaultDomain(FaultDomain):
                 "thread-domain fault simulation is single-device (pseudo-"
                 "threads inside one sweep); sharded sessions take "
                 "ShardFaultDomain")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardFault:
+    """One scheduled shard failure: shard ``shard`` stops participating
+    after ``at_sweep`` sweeps of the next drive.  ``permanent=True`` is
+    crash-stop (the shards shrink around it); ``False`` is a transient
+    stall (the shard rejoins after the drive — the straggler case)."""
+    shard: int
+    at_sweep: int = 1
+    permanent: bool = True
+
+
+class ShardFaultDomain(FaultDomain):
+    """Deterministic shard-crash injection for ``topology="sharded"``
+    sessions.  Faults queue FIFO; each ``update`` consumes at most one.
+    The session performs the recovery (helping, and on a permanent loss the
+    elastic re-partition) and logs a :class:`RecoveryRecord`."""
+
+    name = "shard"
+
+    def __init__(self, faults: Optional[List[ShardFault]] = None):
+        self._pending: List[ShardFault] = list(faults or [])
+
+    def inject(self, shard: int, *, at_sweep: int = 1,
+               permanent: bool = True) -> ShardFault:
+        f = ShardFault(shard=int(shard), at_sweep=int(at_sweep),
+                       permanent=bool(permanent))
+        self._pending.append(f)
+        return f
+
+    def pop_pending(self) -> Optional[ShardFault]:
+        return self._pending.pop(0) if self._pending else None
+
+    def clone(self) -> "ShardFaultDomain":
+        """Independent copy of the schedule: the domain rides on a frozen,
+        shareable config, so each session consumes its own clone."""
+        return ShardFaultDomain(list(self._pending))
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    @property
+    def pending_faults(self) -> List[ShardFault]:
+        return list(self._pending)
+
+    def validate_for(self, *, topology: str) -> None:
+        if topology != "sharded":
+            raise ValueError(
+                "ShardFaultDomain requires topology='sharded' (the shard "
+                "blast radius only exists on a device mesh)")
 
 
 class ProcessFaultDomain(FaultDomain):

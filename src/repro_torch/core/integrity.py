@@ -117,7 +117,13 @@ def invariant_vec(R: torch.Tensor, R_ref: torch.Tensor,
     iterate, reduced on its device (no host sync).  ``R_ref`` is the last
     verified iterate; pass ``R`` itself to make the drift term 0.  A
     non-finite entry is masked out of the mass and drift terms, so they stay
-    informative beside the finite count."""
+    informative beside the finite count.  Vectors of different lengths
+    raise ``TypeError``, as the reference's broadcast does (a sharded
+    session's baseline after a shrink, ROADMAP watch list 1)."""
+    if R.shape != R_ref.shape:
+        raise TypeError(f"invariant_vec got incompatible shapes for "
+                        f"broadcasting: {tuple(R.shape)}, "
+                        f"{tuple(R_ref.shape)}")
     zero = R.new_zeros(())
     finite = torch.isfinite(R)
     xf = torch.where(valid & finite, R, zero)

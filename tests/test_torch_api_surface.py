@@ -26,14 +26,13 @@ from repro_torch.core import pagerank as tpr
 ROOT = Path(__file__).resolve().parents[1]
 
 # reference names of later slices, by the ROADMAP item that ports them
-UNPORTED = {
-    "ShardFault": "A 14b", "ShardFaultDomain": "A 14b",
-}
+# (none since A 14b brought the shard domain)
+UNPORTED: dict = {}
 # the reference's builtin engines and public session and service members of
 # later slices, tagged the same way (the walk engine, ``ppr_query`` and the
 # walk fields came with A 13, the distributed engine with A 14a)
 UNPORTED_ENGINES: dict = {}
-UNPORTED_MEMBERS = {"inject_shard_fault": "A 14b"}
+UNPORTED_MEMBERS: dict = {}
 
 
 def _reference_surface():

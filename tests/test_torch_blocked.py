@@ -717,9 +717,10 @@ class TestConfigAxis:
             name = "shard"
 
         # since A 11 a domain the engine declares gets the reference's
-        # outcome (it constructs); only the shard domain waits, for A 14
+        # outcome (it constructs); since A 14b a shard domain off the
+        # sharded topology gets the reference's ValueError too
         for engine in ("blocked", "pallas"):
             cfg = TConfig(engine=engine, fault_domain=ProcessLike())
             assert cfg.fault_domain.name == "process"
-        with pytest.raises(NotImplementedError, match="A 14"):
+        with pytest.raises(ValueError, match="does not host the 'shard'"):
             TConfig(engine="blocked", fault_domain=ShardLike())

@@ -1137,3 +1137,46 @@ def test_cuda_sharded_session_matches_cpu(cuda_device, exchange, part):
     assert gpu.report().retraces_post_warmup == 0
     vals, idx = gpu.top_k(5)
     assert np.array_equal(gpu.query(idx), vals)
+
+
+@pytest.mark.cuda
+def test_cuda_faulted_sharded_session_matches_cpu(cuda_device):
+    """An 8-shard session on the card loses shard 3 after 2 sweeps of a df
+    update (helped, then re-partitioned onto 7 shards) and stalls shard 2
+    on a later one, as its CPU twin does: counters, the recovery events
+    (but for their wall times) and the shard counts equal, ranks within
+    1e-12; the recovery drive launches kernel #1 twice a shard a sweep."""
+    from repro_torch.api import EngineConfig, PageRankSession
+    from repro_torch.core.delta import random_batch
+    from repro_torch.graphs.generators import rmat
+    hg = rmat(12, avg_degree=6, seed=3)
+    cfg = EngineConfig(topology="sharded", n_shards=8)
+    cpu = PageRankSession.from_graph(hg, config=cfg, device="cpu")
+    gpu = PageRankSession.from_graph(hg, config=cfg, device=cuda_device)
+    gpu.warmup()
+    cur = hg
+    for i in range(4):
+        d, ins = random_batch(cur, 2e-3, seed=900 + i)
+        cur = cur.apply_batch(d, ins)
+        if i in (1, 3):
+            for s in (cpu, gpu):
+                s.inject_shard_fault(3 if i == 1 else 2, at_sweep=2,
+                                     permanent=(i == 1))
+        full0 = bsk.block_spmv_cuda.launches
+        a, b = cpu.update(d, ins), gpu.update(d, ins)
+        assert (a.stats.sweeps, a.stats.edges_processed, a.converged,
+                a.host_syncs) == (b.stats.sweeps, b.stats.edges_processed,
+                                  b.converged, b.host_syncs)
+        assert b.driver_retraces == 0
+        launched = bsk.block_spmv_cuda.launches - full0
+        if i == 1:          # 2 sweeps on 8 shards, the rest on 7
+            assert launched == 16 * 2 + 14 * (b.stats.sweeps - 2)
+        assert np.abs(cpu.ranks - gpu.ranks).max() <= 1e-12
+    rc, rg = cpu.report(), gpu.report()
+    strip = lambda rep: [{k: v for k, v in e.items() if k != "wall_time_s"}
+                         for e in rep.recovery_events]
+    assert strip(rg) == strip(rc) and len(strip(rg)) == 2
+    assert rg.recovery_events[0]["helped_vertices"] > 0
+    assert rg.n_shards == rc.n_shards == 7
+    assert gpu.device_footprint == (torch.cuda.current_device(),)
+    assert (cpu._x_full, cpu._x_delta) == (gpu._x_full, gpu._x_delta)

@@ -165,12 +165,12 @@ class TestConfigAxis:
 
         # the corruption domain is ported (A 11): the pallas engine hosts
         # it, the blocked engine refuses it with the reference's ValueError;
-        # only the shard domain still names a later item
+        # the shard domain (A 14b) off the sharded topology likewise
         assert TConfig(fault_domain=CorruptionLike()).fault_domain.name == \
             "corruption"
         with pytest.raises(ValueError, match="does not host"):
             TConfig(engine="blocked", fault_domain=CorruptionLike())
-        with pytest.raises(NotImplementedError, match="A 14"):
+        with pytest.raises(ValueError, match="does not host the 'shard'"):
             TConfig(fault_domain=ShardLike())
 
     def test_recovery_record_matches_reference(self):

@@ -3,8 +3,9 @@
 held against the JAX package's in-process 1-shard session (counters EQUAL,
 f64 ranks within 1e-12), the ``recompute("df")`` replay bit-equal to the
 update, forks, an 8-shard port session against the port's blocked oracle at
-the reference's 1e-9, the relabeled reads, a service slot, and what waits
-for ROADMAP A 14b.
+the reference's 1e-9, the relabeled reads, a service slot, and the
+configs and hooks that ROADMAP A 14b brought (their twins are in
+``tests/test_torch_shard_faults.py``).
 """
 import numpy as np
 import pytest
@@ -145,17 +146,20 @@ class TestTopologyConfig:
                     faults=object(), tile=512, active_policy="affected")
 
     def test_a14b_items_raise_naming_it(self, tmp_path):
+        """Since A 14b the three sharded configs construct, as the
+        reference's do (the distributed engine hosts the shard domain);
+        ``shardings=`` waits for A 15b, its only caller's item."""
         class ShardLike(FaultDomain):
             name = "shard"
 
         for kw in (dict(fault_domain=ShardLike()),
                    dict(durability="wal"),
                    dict(integrity={"mass_tol": 1e-6})):
-            with pytest.raises(NotImplementedError, match="A 14b"):
-                EngineConfig(topology="sharded", n_shards=2, **kw)
+            cfg = EngineConfig(topology="sharded", n_shards=2, **kw)
+            assert cfg.resolved_engine == "distributed"
         ck = Checkpointer(str(tmp_path))
         ck.save({"w": np.ones(2)}, {"step": np.int32(1)}, 1)
-        with pytest.raises(NotImplementedError, match="A 14b"):
+        with pytest.raises(NotImplementedError, match="A 15b"):
             ck.restore(1, {"w": 0}, {"step": 0}, shardings=({}, {}))
 
 
@@ -253,11 +257,19 @@ class TestShardedSession:
         _same_step(js.update(d2, i2), ts.update(d2, i2))
 
     def test_integrity_hooks_wait_for_a14b(self, dyn):
-        _, ts = _pair(dyn)
-        for call in (lambda: ts.verify(),
-                     lambda: ts.inject_corruption("rank")):
-            with pytest.raises(NotImplementedError, match="A 14b"):
-                call()
+        """Since A 14b the hooks give the reference's outcomes: a clean
+        ``verify`` runs the 4 rank invariants, a stream-state corruption
+        raises at injection, and a ``rank`` flip's frontier rung raises the
+        reference's ``ValueError`` (no snapshot to solve on)."""
+        js, ts = _pair(dyn)
+        for s in (js, ts):
+            rep = s.verify()
+            assert rep.ok and rep.checks_run == 4
+            with pytest.raises(ValueError, match="stream-mode state"):
+                s.inject_corruption("tile")
+            s.inject_corruption("rank", seed=1)
+            with pytest.raises(ValueError, match="needs a GraphSnapshot"):
+                s.verify()
 
     def test_from_snapshot_save_restore_and_close(self, dyn, tmp_path):
         _, hg0, r_prev, dels, ins = dyn
