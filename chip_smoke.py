@@ -73,10 +73,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
    expansion: sweeps, blocks and edges equal) and ``df_pagerank`` (its
    counters printed side by side: ROADMAP C 7) — and BB under one crash
    (dnf); per solve its sweeps, blocks, edges and the sweep kernel's device
-   time.  Then the sweep kernel against its plain
-   version (LF and BB, on the card) over all 16,384 slots of a cold start
-   and over the compacted DF frontier of the first batch, timed beside its
-   bound.  Then the paged run: a DF solve (LF, ``active_policy="rc"``) of 16
+   time, each solve's counters (sweeps, blocks, edges, ``sim_time_ms``)
+   equal to fixed values (``BLOCKED_COUNTERS``: the sweep is exact, so no
+   kernel may move them).  Then the sweep kernel against its plain
+   version (LF and BB, on the card; three more LF launches bit-identical to
+   the first) over all 16,384 slots of a cold start, over the compacted DF
+   frontier of the first batch, and over a chain of 2,048 adjacent blocks
+   from the frontier's first (each slot reads the last one's fresh ranks
+   and marks the next), timed beside its bound.  Then the paged run: a DF solve (LF, ``active_policy="rc"``) of 16
    local insertions, unpaged, then through a pager holding every block
    with each sweep's active set recorded, and through an ``EdgePager``
    whose budget holds the largest of those sets and no more (below the
@@ -1247,6 +1251,30 @@ def _variants_phase(bsk, hg, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 BLOCKED_FAULTS = dict(n_threads=64, n_crashed=48, crash_window=4, seed=3)
+# every phase 8 solve's sweeps, blocks, edges and sim_time_ms (6 decimals),
+# from the runs of this script on the card before the sweep kernel's
+# pipelined redesign; an exact sweep keeps them all
+BLOCKED_COUNTERS = {
+    "LF cold solve": (27, 442368, 142924932, 1027.660932),
+    "session (fault-free) df update 0": (51, 780117, 441303514, 2001.537514),
+    "session (fault-free) df update 1": (51, 776297, 438065232, 1990.659232),
+    "session (faults=plan) df update 0": (51, 780117, 441303514, 124.592558),
+    "session (faults=plan) df update 1": (51, 776297, 438065232, 124.082410),
+    "session (thread domain) df update 0": (51, 780117, 441303514,
+                                            124.592558),
+    "session (thread domain) df update 1": (51, 776297, 438065232,
+                                            124.082410),
+    "df_pagerank (dense, LF)": (51, 776297, 438065232, 1990.659232),
+    "df_pagerank (LF, 48 of 64 threads crashed)": (51, 776297, 438065232,
+                                                   124.082410),
+    "nd_pagerank (BB, blocked)": (23, 376832, 121762621, 875.426621),
+    "df_pagerank (BB, blocked)": (23, 308645, 198741377, 816.031377),
+    "nd_pagerank (BB, pallas)": (23, 376832, 121762621, 875.426392),
+    "df_pagerank (BB, pallas)": (23, 308645, 198745564, 816.035583),
+    "df_pagerank (BB, one crash)": (0, 0, 0, 0.0),
+    "paged DF solve": (19, 4314, 2276481, None),
+}
+CHAIN_BLOCKS = 2048
 
 
 class _SweepClock:
@@ -1298,6 +1326,16 @@ def _sweep_state(R, aff):
     return R.clone(), aff.clone(), aff.clone()
 
 
+def _same_counters(what: str, st) -> None:
+    """A phase 8 solve's counters against ``BLOCKED_COUNTERS``."""
+    sweeps, blocks, edges, sim = BLOCKED_COUNTERS[what]
+    got = (st.sweeps, st.blocks_processed, st.edges_processed)
+    _check(got == (sweeps, blocks, edges)
+           and (sim is None or round(st.sim_time_ms, 6) == sim),
+           f"blocked {what}: counters {got}, sim_time_ms {st.sim_time_ms} "
+           f"moved from {(sweeps, blocks, edges)}, {sim}")
+
+
 def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
                   what: str, edges=None) -> dict:
     """One LF and one BB sweep through the kernel and through its plain
@@ -1305,7 +1343,8 @@ def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
     per-slot edges array-equal, R and maxdr within 1e-12.  ``edges`` is a
     pager's view (a paged sweep).  Returns the worst error, the LF
     kernel's per-slot edges and final state, the plain LF sweep's host time
-    and the kernel's device time (mean of 3 fresh launches)."""
+    and the kernel's device time (mean of 3 fresh launches, each
+    bit-identical to the first)."""
     sg = blk.sweep_graph(g, R0.dtype, edges)
     kw = dict(n=g.n, alpha=0.85, tau=TAU, tau_f=TAU / 1000.0 if expand
               else float("inf"), tile=512, expand=expand)
@@ -1340,11 +1379,15 @@ def _sweep_parity(bws, blk, g, R0, aff0, ids, mask, *, expand: bool,
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                bws.blocked_sweep_cuda(sg, R, R, A, C, ids, mask,
-                                       jacobi=False, **kw)
+                m, e = bws.blocked_sweep_cuda(sg, R, R, A, C, ids, mask,
+                                              jacobi=False, **kw)
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end))
+                _check(all(bool(torch.equal(x, y)) for x, y in zip(
+                    (R, A, C, m, e), out["state"])),
+                       f"blocked_sweep ({what}): a repeat launch differs "
+                       "from the first")
             out["ms"] = float(np.mean(times))
     return out
 
@@ -1435,6 +1478,7 @@ def _paged_run(bws, blk, hg3, g3, r_cold, smi: str) -> dict:
           f"against {ms_u / sweeps:.3f} ms unpaged; pager {pager.stats()} "
           f"[{smi}]", flush=True)
     _check(same, "the paged blocked solve differs from the unpaged one")
+    _same_counters("paged DF solve", st_p)
     _check(st_u.converged, "the paged run's DF solve did not converge")
     _check(pager.counters["misses"] > 0, "the pager missed nothing")
     return {"gl": gl, "gp": gp, "R0": R0, "aff": aff, "first": sets[0],
@@ -1508,6 +1552,7 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
               f"converged {st.converged}, dnf {st.dnf}; sweep kernel "
               f"{clock.ms():.3f} ms ({per:.3f} ms a sweep) [{smi}]",
               flush=True)
+        _same_counters(what, st)
 
     # -- the path: launch counters zeroed just before, read just after -----
     bws.blocked_sweep_cuda.launches = 0
@@ -1672,6 +1717,26 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
         torch.cat([aff, torch.zeros(1, dtype=torch.bool, device="cuda")]),
         ids_full[:K].contiguous(), mask, expand=True,
         what=f"DF frontier, {n_act} of {K} slots")
+    # a chain of adjacent blocks from the frontier's first: each slot reads
+    # the fresh ranks of the slot before it and marks the one after it
+    b0 = min(int(ids_full[0]), n_rb - CHAIN_BLOCKS)
+    chain = torch.arange(b0, b0 + CHAIN_BLOCKS, dtype=torch.int32,
+                         device="cuda")
+    chain_par = _sweep_parity(
+        bws, blk, g4, pad_ranks(g4, cold.ranks),
+        torch.cat([aff, torch.zeros(1, dtype=torch.bool, device="cuda")]),
+        chain, torch.ones(CHAIN_BLOCKS, dtype=torch.bool, device="cuda"),
+        expand=True, what=f"DF frontier, a chain of {CHAIN_BLOCKS} adjacent "
+        f"blocks from block {b0}")
+    ibp4 = g4.in_block_ptr.cpu().numpy().astype(np.int64)
+    in_only = ibp4[b0 + 1:b0 + CHAIN_BLOCKS + 1] - ibp4[b0:b0 + CHAIN_BLOCKS]
+    expanded = int((chain_par["edges"] > in_only).sum())
+    print(f"blocked_sweep: DF chain of {CHAIN_BLOCKS} adjacent blocks from "
+          f"block {b0}: {chain_par['ms']:.4f} ms on the card, {expanded} "
+          f"slots expanded, plain version {chain_par['plain_s'] * 1e3:.1f} "
+          f"ms; kernel vs plain max abs err {chain_par['err']:.3e} [{smi}]",
+          flush=True)
+    _check(expanded > 0, "the chain sweep expanded no slot")
     paged = _paged_sweep_parity(bws, blk, paged_run, smi)
     del paged_run
     df_ids = ids_full[:n_act].cpu().numpy().astype(np.int64)
@@ -1696,7 +1761,8 @@ def _blocked_phase(bws, bsk, hg3, ref3, smi: str) -> tuple:
         replaces="src/repro/core/blocked.py::sweep (lax.scan, no Pallas "
         "kernel)",
         launches=launches["blocked_sweep"],
-        max_abs_err=max(cold_par["err"], df_par["err"], paged["err"]),
+        max_abs_err=max(cold_par["err"], df_par["err"], chain_par["err"],
+                        paged["err"]),
         ms=cold_par["ms"], plain_ms=cold_par["plain_s"] * 1e3,
         bound_ms=cold_bound[0], bound_by=cold_bound[1], library_ms=None)
     return launches, row

@@ -6,8 +6,10 @@ compacted block slots (no Pallas kernel): slot *j* reads the ranks,
 ``affected`` and ``RC`` that slots *< j* wrote.
 
 * :func:`blocked_sweep_cuda` — the CUDA C++ kernel in
-  ``csrc/blocked_sweep.cu`` (``sm_90a``): one thread block walks the slots
-  in order (see the note in the source), built at first use by
+  ``csrc/blocked_sweep.cu`` (``sm_90a``): one thread block whose producer
+  warps stage the next slots into a shared-memory ring while its consumer
+  warps finish the current one, in slot order (the note in the source
+  states the hazard rule that keeps it exact), built at first use by
   :mod:`repro_torch.kernels.nvcc` and bound through ``ctypes``;
 * :func:`blocked_sweep_plain` — the reference's scan written slot by slot
   with tensor ops, in the same summation order.
@@ -86,9 +88,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     # (dtype, B, tile, expand, K, n_pad), slot_ids, slot_mask, in_blk,
     # in_lo, in_len, out_lo, out_len, vptr, src, osrc, odst, inv_deg, valid,
     # R, read, affected, rc, (alpha, base_rank, tau, tau_f), maxdr, edges,
-    # stream
+    # scratch, stream
     lib.blocked_sweep_launch.argtypes = ([i32] * 6 + [ptr] * 17 + [f64] * 4
-                                         + [ptr] * 3)
+                                         + [ptr] * 4)
     lib.blocked_sweep_launch.restype = i32
     lib.blocked_sweep_error_string.argtypes = [i32]
     lib.blocked_sweep_error_string.restype = ctypes.c_char_p
@@ -188,6 +190,10 @@ def blocked_sweep_cuda(sg: SweepGraph, R, read, affected, rc, slot_ids,
     K = int(slot_ids.shape[0])
     maxdr = torch.empty(1, dtype=R.dtype, device=R.device)
     edges = torch.empty(K, dtype=torch.int32, device=R.device)
+    # the active slots' ids, blocks and first ring items, and each block's
+    # slot
+    scratch = torch.empty(3 * K + 1 + sg.n_pad // sg.block,
+                          dtype=torch.int32, device=R.device)
     a, base, t, tf = _scalars(R.dtype, n, alpha, tau, tau_f)
     lib = library()
     rc_code = lib.blocked_sweep_launch(
@@ -198,7 +204,7 @@ def blocked_sweep_cuda(sg: SweepGraph, R, read, affected, rc, slot_ids,
         sg.osrc.data_ptr(), sg.odst.data_ptr(), sg.inv_deg.data_ptr(),
         sg.valid.data_ptr(), R.data_ptr(), read.data_ptr(),
         affected.data_ptr(), rc.data_ptr(), a, base, t, tf,
-        maxdr.data_ptr(), edges.data_ptr(),
+        maxdr.data_ptr(), edges.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(R.device).cuda_stream)
     if rc_code != 0:
         msg = lib.blocked_sweep_error_string(rc_code).decode()

@@ -43,14 +43,16 @@ def _nvcc(src: Path) -> str:
 class Library:
     """One kernel library of this process, built (or found built) and loaded
     at the first :meth:`load`; ``bind`` sets the C functions' argument and
-    result types.  ``builds`` counts the loads this process made: 1 after
-    the first CUDA launch, 0 on the CPU."""
+    result types; ``flags`` are extra ``nvcc`` flags (a ``-D`` macro that a
+    source compiles in, under a ``stem`` of its own).  ``builds`` counts the
+    loads this process made: 1 after the first CUDA launch, 0 on the CPU."""
 
     _all: List["Library"] = []
 
     def __init__(self, src: Path, stem: str,
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None], flags: tuple = ()):
         self.src, self.stem, self._bind = src, stem, bind
+        self.flags = NVCC_FLAGS + tuple(flags)
         self.lib: Optional[ctypes.CDLL] = None
         self.builds = 0
         self._lock = threading.Lock()
@@ -66,14 +68,14 @@ class Library:
 
     def _build_and_load(self) -> None:
         text = self.src.read_bytes()
-        key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+        key = hashlib.sha256(text + " ".join(self.flags).encode()
                              ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{self.stem}_{key}.so"
         if not so.exists():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [_nvcc(self.src), *NVCC_FLAGS, "-o", tmp, str(self.src)]
+            cmd = [_nvcc(self.src), *self.flags, "-o", tmp, str(self.src)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 os.unlink(tmp)

@@ -511,6 +511,153 @@ def test_cuda_blocked_sweep_matches_plain(cuda_device, block, t_dt, tile,
         torch.testing.assert_close(mk, mp, rtol=0, atol=TOLS[t_dt])
 
 
+def _hazard_graphs(n=4096):
+    """Graphs for the pipelined sweep's hazard rule: a chain whose every
+    block shares edges with the next and the last (each slot, in block
+    order, reads the fresh ranks of the slot before it and marks the one
+    after it), and a hub whose blocks' in- and out-edges (some 4,200 each,
+    once duplicate edges merge) exceed the ring's chunk, so their slots
+    stream through it in pieces."""
+    from repro_torch.core.graph import HostGraph
+    rng = np.random.default_rng(11)
+    i = np.arange(n - 1)
+    near = (rng.integers(0, n, n // 4)
+            + rng.integers(-128, 129, n // 4)) % n
+    chain = np.concatenate([np.stack([i, i + 1], 1), np.stack([i + 1, i], 1),
+                            np.stack([rng.integers(0, n, n // 4), near], 1)])
+    hub = np.concatenate([np.stack([rng.integers(0, n, 12000),
+                                    np.full(12000, 100)], 1),
+                          np.stack([np.full(12000, 2100),
+                                    rng.integers(0, n, 12000)], 1),
+                          rng.integers(0, n, (4 * n, 2))])
+    return HostGraph(n, chain), HostGraph(n, hub)
+
+
+def _in_order_inputs(g, dtype, seed, keep=()):
+    """As :func:`_sweep_inputs`, with the slots in block order (holes and
+    masked slots kept), so adjacent blocks follow each other; the blocks
+    in ``keep`` are unmasked (and take a −1 slot if the list lacks them)."""
+    R, aff, ids, mask = _sweep_inputs(g, dtype, seed)
+    ids, mask = ids.numpy().copy(), mask.numpy().copy()
+    live = ids >= 0
+    ids[live] = np.sort(ids[live])
+    for b in keep:
+        if b not in ids:
+            ids[np.nonzero(ids < 0)[0][0]] = b
+        mask[ids == b] = True
+    return R, aff, torch.from_numpy(ids), torch.from_numpy(mask)
+
+
+def _check_hazard_sweep(cuda_device, hg, block, hubs, seed, t_dt, mode,
+                        expand):
+    """The kernel against the plain version on ``hg`` at block size
+    ``block``, the slots in block order and the blocks in ``hubs`` among
+    them: affected, RC and per-slot edges array-equal, R and maxdr within
+    the dtype's tolerance, two launches bit-identical, and a paged sweep
+    bit-identical to the unpaged one."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.core import tiering
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    tau = 1e-10 if t_dt == torch.float64 else 1e-7
+    kw = dict(alpha=0.85, tau=tau, tau_f=tau / 1000 if expand
+              else float("inf"), tile=64, expand=expand,
+              jacobi=mode == "bb")
+    g = hg.snapshot(block_size=block, device="cpu")
+    gc = hg.snapshot(block_size=block, device=cuda_device)
+    R, aff, ids, mask = _in_order_inputs(g, t_dt, seed=seed, keep=hubs)
+    plain = _run_sweep(bws.blocked_sweep_plain, blk.sweep_graph(g, t_dt), R,
+                       aff, ids, mask, g, **kw)
+    dev = [t.to(cuda_device) for t in (R, aff, ids, mask)]
+    sgc = blk.sweep_graph(gc, t_dt)
+    runs = [_run_sweep(bws.blocked_sweep_cuda, sgc, *dev, gc, **kw)
+            for _ in range(2)]
+    live = ids.numpy()[(ids.numpy() >= 0) & mask.numpy()]
+    view = tiering.EdgePager(gc, budget_bytes=1 << 24).ensure(live)
+    paged = _run_sweep(bws.blocked_sweep_cuda,
+                       blk.sweep_graph(tiering.paged_snapshot(gc), t_dt,
+                                       view), *dev, gc, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(runs[0], runs[1], paged):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    Rk, affk, rck, mk, ek = (t.cpu() for t in runs[0])
+    Rp, affp, rcp, mp, ep = plain
+    assert torch.equal(affk, affp) and torch.equal(rck, rcp)
+    assert torch.equal(ek, ep)
+    torch.testing.assert_close(Rk, Rp, rtol=0, atol=TOLS[t_dt])
+    torch.testing.assert_close(mk, mp, rtol=0, atol=TOLS[t_dt])
+    assert set(hubs) <= set(live.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [True, False])
+@pytest.mark.parametrize("mode", ["lf", "bb"])
+@pytest.mark.parametrize("t_dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("graph", ["chain", "hub"])
+def test_cuda_blocked_sweep_hazard_graphs(cuda_device, graph, t_dt, mode,
+                                          expand):
+    """The pipelined kernel against the plain version where the hazard rule
+    and the ring's chunks matter (B = 64): see :func:`_check_hazard_sweep`."""
+    hg = dict(zip(("chain", "hub"), _hazard_graphs()))[graph]
+    hubs = (100 // 64, 2100 // 64) if graph == "hub" else ()
+    _check_hazard_sweep(cuda_device, hg, 64, hubs, len(graph), t_dt, mode,
+                        expand)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lf", "bb"])
+@pytest.mark.parametrize("t_dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize("block, graph, n", [
+    (1, "chain", 65536), (16, "chain", 4096), (16, "hub", 4096),
+    (1024, "chain", 4096), (1024, "hub", 4096)])
+def test_cuda_blocked_sweep_hazard_block_sizes(cuda_device, block, graph, n,
+                                               t_dt, mode):
+    """The hazard checks of :func:`_check_hazard_sweep`, with expansion, at
+    the block sizes whose launch differs from B = 64's: B <= 32 (one
+    consumer warp, whose vote is a warp vote), B = 1024 (two vertices a
+    consumer thread and the fewest producer warps), and B = 1 at
+    n = 65,536 (a slot a vertex: 65,536 slots, more than shared memory
+    could hold a slot table for)."""
+    hg = dict(zip(("chain", "hub"), _hazard_graphs(n)))[graph]
+    hubs = (100 // block, 2100 // block) if graph == "hub" else ()
+    _check_hazard_sweep(cuda_device, hg, block, hubs, block + len(graph),
+                        t_dt, mode, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lf", "bb"])
+def test_cuda_blocked_sweep_block_named_twice(cuda_device, mode):
+    """A slot list that names blocks twice (the kernel then stages each
+    slot only after the one before it is done): equal to the plain
+    version, two launches bit-identical."""
+    from repro_torch.core import blocked as blk
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    hg = _hazard_graphs()[0]
+    kw = dict(alpha=0.85, tau=1e-10, tau_f=1e-13, tile=64, expand=True,
+              jacobi=mode == "bb")
+    g = hg.snapshot(block_size=64, device="cpu")
+    gc = hg.snapshot(block_size=64, device=cuda_device)
+    R, aff, ids, mask = _in_order_inputs(g, torch.float64, seed=5)
+    ids = torch.cat([ids, ids[:40:3]])
+    mask = torch.cat([mask, torch.ones(len(ids) - len(mask),
+                                       dtype=torch.bool)])
+    plain = _run_sweep(bws.blocked_sweep_plain,
+                       blk.sweep_graph(g, torch.float64), R, aff, ids, mask,
+                       g, **kw)
+    dev = [t.to(cuda_device) for t in (R, aff, ids, mask)]
+    sgc = blk.sweep_graph(gc, torch.float64)
+    runs = [_run_sweep(bws.blocked_sweep_cuda, sgc, *dev, gc, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    Rk, affk, rck, mk, ek = (t.cpu() for t in runs[0])
+    Rp, affp, rcp, mp, ep = plain
+    assert torch.equal(affk, affp) and torch.equal(rck, rcp)
+    assert torch.equal(ek, ep)
+    torch.testing.assert_close(Rk, Rp, rtol=0, atol=TOLS[torch.float64])
+    torch.testing.assert_close(mk, mp, rtol=0, atol=TOLS[torch.float64])
+
+
 @pytest.mark.cuda
 def test_cuda_blocked_sweep_refuses_bad_operands(cuda_device):
     """A BB sweep reading the R it writes, a dtype with no kernel, and an
