@@ -169,9 +169,12 @@ Phases, each of which raises (non-zero exit) on any failed check:
 14. the walk engine and PPR on phase 3's graph (R = 16, L = 48, f64):
    the device cipher against the plain threefry on 10^6 (seed, wid) pairs,
    ``walk_regen`` on 4,096 walks through the degree-7 vertices (their rows
-   reversed) and over every walk (the open's regeneration) and
-   ``walk_touch`` on one batch's touched set, each equal to its plain
-   version and timed beside its bound; then, with the launch counters
+   reversed), ``walk_touch`` on one batch's touched set, ``walk_regen`` on
+   the walks that batch flags (on the open's adjacency: rows rewritten as
+   they were) and over every walk (the open's regeneration), each equal to
+   its plain version and timed beside its bound (the cipher's: one block
+   a walk's key, two a step that continues it, one the step that ends
+   it); then, with the launch counters
    zeroed just before and read at the end, a walk session opens, warms up
    and takes phase 3's 8 ``df`` batches and its ``nd`` batch (no build
    after warmup, each update delta-localized), equals a fresh store on the
@@ -2981,12 +2984,45 @@ def _int_err(*pairs) -> float:
     return float(err)
 
 
+def _regen_blocks(rows: torch.Tensor, n: int) -> int:
+    """Cipher blocks walk_regen needs for these rows as they come out: one
+    for the walk's key (fold_in), two for each step that continues a walk
+    and one for the step that ends it (a row of l live entries continued
+    l - 1 times and ended once if l < L)."""
+    L = rows.shape[1]
+    live = (rows < n).sum(1)
+    return int((1 + 2 * (live - 1) + (live < L).long()).sum())
+
+
+def _regen_bytes(new: torch.Tensor, n: int, cap: int,
+                 old: torch.Tensor = None) -> int:
+    """Bytes walk_regen must move to turn rows ``old`` (all sentinel when
+    None, as at the open) into rows ``new``: the id list; each old row up
+    to its first sentinel; the entries that change, a row's first
+    max(l_old, l_new) (past both every entry is n already); each visited
+    vertex's count, read and written; the adjacency row and degree of each
+    vertex a walk stepped from."""
+    B, L = new.shape
+    l_new = (new < n).sum(1)
+    if old is None:
+        scan, l_old, seen = B, torch.zeros_like(l_new), new[new < n]
+    else:
+        scan, l_old = _scan_entries(old, n), (old < n).sum(1)
+        seen = torch.cat([old[old < n], new[new < n]])
+    stepped = new[:, :-1][new[:, 1:] < n]
+    return int(4 * B + 4 * scan + 4 * int(torch.maximum(l_old, l_new).sum())
+               + 8 * seen.unique().numel()
+               + (4 * cap + 4) * stepped.unique().numel())
+
+
 def _walk_kernel_checks(wk, threefry, ws, touched: np.ndarray,
                         smi: str) -> list:
     """Phase 14, part 1: each walk kernel held to its plain version on the
     card at the main path's shapes (exact), the device cipher to the plain
     threefry on ``THREEFRY_PAIRS`` (seed, wid) pairs, and both kernels
-    timed beside their work bounds.  Returns the kernel-table rows (their
+    timed beside their work bounds: ``walk_touch`` on one batch's touched
+    set, ``walk_regen`` on the walks it flags and over every walk (the
+    open, the kernel-table row).  Returns the kernel-table rows (their
     launches are filled in by the caller)."""
     n, R, L = ws.n, ws.R, ws.L
     nr = n * R
@@ -3073,7 +3109,42 @@ def _walk_kernel_checks(wk, threefry, ws, touched: np.ndarray,
           f"{touch_ms:.4f} ms (bound {touch_bound:.4f} ms by bytes: "
           f"{touch_bytes} bytes, {entries} row entries read), plain "
           f"{touch_plain_ms:.1f} ms [{smi}]", flush=True)
-    del f1, f2
+
+    # -- walk_regen on the walks that batch flags, on the open's adjacency:
+    # each row is rewritten as it was, so both routes must give the open's
+    df_ids = f1.nonzero().reshape(-1).to(torch.int32)
+    B = int(df_ids.shape[0])
+    rows = ws.walks[df_ids.long()]
+    outs = []
+    for fn in (wk.walk_regen_cuda, wk.walk_regen_plain):
+        w, c = ws.walks.clone(), ws.counts.clone()
+        s = fn(w, c, ws.adj, ws.deg, df_ids, R=R, alpha=ws._alpha32,
+               key=ws._key)
+        outs.append((w, c, int(s)))
+    df_err = max(_int_err((outs[0][0], outs[1][0]), (outs[0][1], outs[1][1]),
+                          (outs[0][0], ws.walks), (outs[0][1], ws.counts)),
+                 float(abs(outs[0][2] - outs[1][2])))
+    _check(df_err == 0.0, "walk_regen on a df batch's walks differs from "
+           "its plain version or from the open's rows")
+    w, c = outs[0][0], outs[0][1]
+    df_ms = _event_ms(lambda: wk.walk_regen_cuda(
+        w, c, ws.adj, ws.deg, df_ids, R=R, alpha=ws._alpha32, key=ws._key),
+        reps=5)
+    df_plain_ms = _event_ms(lambda: wk.walk_regen_plain(
+        w, c, ws.adj, ws.deg, df_ids, R=R, alpha=ws._alpha32, key=ws._key),
+        reps=1)
+    df_bytes = _regen_bytes(rows, n, ws.adj.shape[1], old=rows)
+    df_ops = THREEFRY_INT_OPS * _regen_blocks(rows, n)
+    df_bound, df_by = max((df_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                          (df_ops / INT32_OPS * 1e3, "operations"))
+    print(f"walk_regen, one df batch: the {B} walks walk_touch flagged "
+          f"({int(outs[0][2])} live entries), on the open's adjacency: "
+          f"walks, counts and steps equal the plain version and the open's "
+          f"rows; {df_ms:.4f} ms (bound {df_bound:.4f} ms by {df_by}: "
+          f"{df_bytes} bytes, {df_ops} cipher int32 operations), plain "
+          f"{df_plain_ms:.1f} ms [{smi}]", flush=True)
+    regen_err = max(regen_err, df_err)
+    del f1, f2, outs, w, c, rows
 
     # -- the open's regeneration: every walk from sentinel rows --------------
     all_ids = torch.arange(nr, dtype=torch.int32, device=dev)
@@ -3098,15 +3169,10 @@ def _walk_kernel_checks(wk, threefry, ws, touched: np.ndarray,
            "the plain full regeneration differs from the open's")
     regen_err = max(regen_err, full_err, plain_err)
     live = ws.total_steps
-    open_bytes = (4 * nr                    # each row's sentinel, read
-                  + 4 * (nr + 1) * L        # every row written
-                  + 4 * nr                  # the id list
-                  + 8 * (n + 1)             # counts read and written
-                  + ws.adj.nbytes + ws.deg.nbytes)
-    # a walk of l live entries draws at min(l, L - 1) steps, two blocks a
-    # step, after one block for its key (fold_in)
+    open_bytes = _regen_bytes(ws.walks[:nr], n, ws.adj.shape[1])
+    # a walk of l live entries draws at min(l, L - 1) steps
     draw_steps = int((ws.walks[:nr] < n).sum(1).clamp(max=L - 1).sum())
-    open_ops = THREEFRY_INT_OPS * (nr + 2 * draw_steps)
+    open_ops = THREEFRY_INT_OPS * _regen_blocks(ws.walks[:nr], n)
     t_bytes = open_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = open_ops / INT32_OPS * 1e3
     open_bound, open_by = max((t_bytes, "bytes"), (t_ops, "operations"))

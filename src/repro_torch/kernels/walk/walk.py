@@ -13,15 +13,17 @@ Each dispatches on the device of the walk buffer: a CUDA tensor always goes
 to the kernel in ``csrc/walk.cu`` (built at first use by
 :mod:`repro_torch.kernels.nvcc`; a build or launch failure raises, nothing
 falls back), a CPU tensor to the plain version.  The layout, the draws and
-the arithmetic are described in the CUDA source.  The CUDA wrappers count
-their launches in ``walk_regen_cuda.launches`` and
-``walk_touch_cuda.launches``.
+the arithmetic are described in the CUDA source.  ``walk_regen``'s launch
+shape comes from :func:`regen_launch` (a persistent grid whose warps take
+ids 32 at a time).  The CUDA wrappers count their launches in
+``walk_regen_cuda.launches`` and ``walk_touch_cuda.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,16 +33,49 @@ from repro_torch.kernels import nvcc
 _SRC = Path(__file__).resolve().parent / "csrc" / "walk.cu"
 # walks a plain-version pass handles at once (bounds its scratch memory)
 PLAIN_CHUNK = 1 << 16
+REGEN_WARPS = 8          # warps a block of walk_regen (kRegenThreads / 32)
+REGEN_CHUNK = 32         # ids a warp takes from the list at a time, one a lane
+                         # (fixed by the kernel: a warp's width)
+
+
+@dataclass(frozen=True)
+class RegenLaunch:
+    """``walk_regen``'s launch: ``grid`` blocks of ``warps`` warps.  Warp g
+    of the W = grid * warps takes chunks g, g + W, g + 2W, ... of
+    ``REGEN_CHUNK`` consecutive list entries; its lanes take the chunk's ids as their walks
+    end.  No shared memory at any L: a lane stages its row's open 16-byte
+    quad in registers."""
+    grid: int
+    warps: int
+
+
+def regen_launch(B: int, sms: int, blocks_per_sm: int) -> RegenLaunch:
+    """The launch shape for ``B`` ids on a card of ``sms`` SMs that keeps
+    ``blocks_per_sm`` blocks of ``REGEN_WARPS`` warps resident: one wave (a
+    persistent grid) when the list has enough chunks, else one warp a
+    chunk.  The row length does not enter it."""
+    if B < 1 or sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"regen_launch needs B >= 1, sms >= 1 and "
+                         f"blocks_per_sm >= 1; got B={B}, sms={sms}, "
+                         f"blocks_per_sm={blocks_per_sm}")
+    n_chunks = -(-B // REGEN_CHUNK)
+    warps = min(REGEN_WARPS, n_chunks)
+    grid = min(sms * blocks_per_sm, -(-n_chunks // warps))
+    return RegenLaunch(grid=grid, warps=warps)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # walks, counts, adj, deg, wids, (B, n, R, L, cap), alpha, (k0, k1),
-    # steps, stream
+    # steps, (grid, warps), stream
     lib.walk_regen_launch.argtypes = ([ptr] * 5 + [i32] * 5
                                       + [ctypes.c_double]
-                                      + [ctypes.c_uint] * 2 + [ptr] * 2)
+                                      + [ctypes.c_uint] * 2 + [ptr]
+                                      + [i32] * 2 + [ptr])
     lib.walk_regen_launch.restype = i32
+    # adj, cap, warps, blocks (out)
+    lib.walk_regen_occupancy.argtypes = [ptr, i32, i32, ptr]
+    lib.walk_regen_occupancy.restype = i32
     # walks, touched, nr, L, n, flags, mass, stream
     lib.walk_touch_launch.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr, ptr]
     lib.walk_touch_launch.restype = i32
@@ -117,6 +152,28 @@ def _check_touch(walks, touched, n_walks: int) -> None:
 # walk_regen
 # ---------------------------------------------------------------------------
 
+# resident blocks an SM keeps, by (device, the kernel's adjacency variant)
+_BLOCKS_PER_SM: Dict[Tuple[int, int, bool], int] = {}
+
+
+def _regen_shape(lib, walks, adj, B: int) -> RegenLaunch:
+    """:func:`regen_launch` for this card (its SM count) and this
+    adjacency (the kernel's variant, whose registers set the occupancy)."""
+    dev = walks.device
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, adj.shape[1], adj.data_ptr() % 16 == 0)
+    if key not in _BLOCKS_PER_SM:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            code = lib.walk_regen_occupancy(adj.data_ptr(), adj.shape[1],
+                                            REGEN_WARPS, ctypes.byref(out))
+        _raise_on(lib, code, "walk_regen occupancy")
+        _BLOCKS_PER_SM[key] = max(int(out.value), 1)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return regen_launch(B, sms, _BLOCKS_PER_SM[key])
+
+
 def walk_regen_cuda(walks, counts, adj, deg, wids, *, R: int, alpha: float,
                     key: Tuple[int, int]) -> torch.Tensor:
     """The kernel: regenerate ``walks[wids]`` in place and fold ``counts``;
@@ -132,11 +189,12 @@ def walk_regen_cuda(walks, counts, adj, deg, wids, *, R: int, alpha: float,
     if B == 0:
         return steps
     lib = library()
+    shape = _regen_shape(lib, walks, adj, B)
     code = lib.walk_regen_launch(
         walks.data_ptr(), counts.data_ptr(), adj.data_ptr(), deg.data_ptr(),
         wids.data_ptr(), B, counts.shape[0] - 1, R, walks.shape[1],
         adj.shape[1], float(alpha), int(key[0]), int(key[1]),
-        steps.data_ptr(),
+        steps.data_ptr(), shape.grid, shape.warps,
         torch.cuda.current_stream(walks.device).cuda_stream)
     _raise_on(lib, code, "walk_regen")
     nvcc.count_launch(walk_regen_cuda)

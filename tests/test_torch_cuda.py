@@ -1209,6 +1209,133 @@ def test_cuda_walk_touch_matches_plain(cuda_device):
         assert torch.equal(f1, f2) and int(m1) == int(m2) >= int(f1.sum())
 
 
+def _reversed_rows(adj, deg):
+    """Each adjacency row's real neighbours in reverse order (the sentinel
+    tail kept): the walks through any vertex of out-degree > 1 move."""
+    idx = torch.arange(adj.shape[1], device=adj.device)[None, :]
+    d = deg[:, None].long()
+    return adj.gather(1, torch.where(idx < d, d - 1 - idx, idx)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [3, 5, 130])
+@pytest.mark.parametrize("B", [1, 31, 33])
+def test_cuda_walk_regen_short_lists_and_odd_rows(cuda_device, L, B):
+    """The lane-refill kernel on short unsorted id lists (fewer ids than a
+    warp's lanes, and one more), the scratch id n*R among them for B > 1,
+    at odd L (rows off the 16-byte grid) and L = 130, on reversed
+    adjacency rows and under another seed's key (so rows grow and shrink):
+    walks, counts and steps equal the plain version; the store's open
+    (every id) equals the CPU's."""
+    from repro_torch.core import threefry
+    from repro_torch.kernels.walk import walk as wk
+    R = 4
+    hg, (cpu, gpu) = _walk_pair(cuda_device, R=R, L=L, seed=100 * L + B)
+    torch.cuda.synchronize()
+    assert torch.equal(cpu.walks, gpu.walks.cpu())
+    assert torch.equal(cpu.counts, gpu.counts.cpu())
+    nr = hg.n * R
+    rng = np.random.default_rng(1000 * L + B)
+    ids = rng.permutation(nr)[:B]
+    if B > 1:
+        ids[rng.integers(0, B)] = nr
+    wids = torch.as_tensor(ids, dtype=torch.int32, device=cuda_device)
+    adj = _reversed_rows(gpu.adj, gpu.deg)
+    outs = []
+    for fn in (wk.walk_regen_cuda, wk.walk_regen_plain):
+        w, c = gpu.walks.clone(), gpu.counts.clone()
+        steps = fn(w, c, adj, gpu.deg, wids, R=R, alpha=gpu._alpha32,
+                   key=threefry.prng_key(100 * L + B + 1))
+        outs.append((w, c, int(steps)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert outs[0][2] == outs[1][2] > 0
+    assert (outs[0][0][nr] == hg.n).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["rmat", "widened", "offset"])
+def test_cuda_walk_regen_adjacency_layouts(cuda_device, layout):
+    """walk_regen on the adjacency layouts whose rows are read one entry at
+    the pick rather than loaded whole with the degree: an R-MAT graph's
+    (hubs of out-degree > 256, cap 512), the road graph's rows widened to
+    16 slots (as a session's slab ladder widens them), and its cap-8 rows
+    in a view 4 bytes past a 16-byte boundary.  On reversed rows under
+    another seed's key, walks, counts and steps equal the plain version."""
+    from repro_torch.core import threefry
+    from repro_torch.core.walk_engine import WalkState
+    from repro_torch.graphs.generators import grid_road, rmat
+    from repro_torch.kernels.walk import walk as wk
+    R, L = 4, 24
+    hg = rmat(10, 16, seed=3) if layout == "rmat" else grid_road(48, seed=7)
+    gpu = WalkState(hg, R=R, L=L, seed=11, device=cuda_device)
+    adj = _reversed_rows(gpu.adj, gpu.deg)
+    if layout == "widened":
+        wide = torch.full((hg.n + 1, 16), hg.n, dtype=torch.int32,
+                          device=cuda_device)
+        wide[:, :adj.shape[1]] = adj
+        adj = wide
+    elif layout == "offset":
+        flat = torch.empty(adj.numel() + 8, dtype=torch.int32,
+                           device=cuda_device)
+        at = (16 - flat.data_ptr() % 16) % 16 // 4 + 1
+        view = flat[at:at + adj.numel()].view(adj.shape)
+        view.copy_(adj)
+        adj = view
+        assert adj.data_ptr() % 16 == 4
+    assert adj.shape[1] == {"rmat": 512, "widened": 16, "offset": 8}[layout]
+    nr = hg.n * R
+    wids = torch.as_tensor(np.random.default_rng(9).permutation(nr)[:4103],
+                           dtype=torch.int32, device=cuda_device)
+    outs = []
+    for fn in (wk.walk_regen_cuda, wk.walk_regen_plain):
+        w, c = gpu.walks.clone(), gpu.counts.clone()
+        steps = fn(w, c, adj, gpu.deg, wids, R=R, alpha=gpu._alpha32,
+                   key=threefry.prng_key(12))
+        outs.append((w, c, int(steps)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert outs[0][2] == outs[1][2] > 0
+    assert not torch.equal(outs[0][0], gpu.walks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("L", [5, 13, 48])
+def test_cuda_walk_touch_row_shapes(cuda_device, L, shift):
+    """walk_touch on crafted rows: rows with no sentinel (l = L), live
+    prefixes ending at every place of a 32-byte sector and across sector
+    boundaries, odd L (rows off the sector grid), touched vertices repeated
+    and more than the four a row keeps in registers; from a buffer whose
+    first row starts ``shift`` words past a 16-byte boundary.  Flags and
+    mass equal the plain version."""
+    from repro_torch.kernels.walk import walk as wk
+    n, rows = 40, 4097
+    rng = np.random.default_rng(L)
+    lens = rng.integers(1, L + 1, rows)
+    lens[:64] = L
+    lens[64:64 + 2 * L] = np.arange(2 * L) % L + 1
+    vals = rng.integers(0, n, (rows, L))
+    vals[: rows // 2] %= 12                 # many repeats
+    host = np.where(np.arange(L)[None, :] < lens[:, None], vals, n)
+    host[-1] = n                            # the scratch row
+    flat = torch.empty(rows * L + 8, dtype=torch.int32, device=cuda_device)
+    at = (16 - flat.data_ptr() % 16) % 16 // 4 + shift
+    walks = flat[at:at + rows * L].view(rows, L)
+    walks.copy_(torch.as_tensor(host, dtype=torch.int32))
+    assert walks.data_ptr() % 16 == 4 * shift
+    for frac in (0.05, 0.5):
+        tm = torch.zeros(n + 1, dtype=torch.bool, device=cuda_device)
+        tm[:n] = torch.as_tensor(rng.random(n) < frac, device=cuda_device)
+        tm[int(rng.integers(0, 12))] = True
+        f1, m1 = wk.walk_touch_cuda(walks, tm, n_walks=rows - 1)
+        f2, m2 = wk.walk_touch_plain(walks, tm, n_walks=rows - 1)
+        torch.cuda.synchronize()
+        assert torch.equal(f1, f2) and int(m1) == int(m2) > 0
+
+
 @pytest.mark.cuda
 def test_cuda_walk_session_matches_cpu(cuda_device):
     """A walk session on the card takes the CPU session's batches: walks,
