@@ -223,7 +223,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the live ranks, bit for bit or not), onto 4 (1e-8) and onto one device
    with the pallas engine (1e-8), each replaying one batch.  An
    ``integrity=`` sharded session verifies clean with the 4 rank
-   invariants and refuses a ``tile`` corruption with ``ValueError``.
+   invariants and refuses a ``tile`` corruption with ``ValueError``;
+17. the GNN model zoo at the registry's published widths on synthetic data
+   from a seed (no hand-written kernel: message passing is
+   ``index_select`` / ``index_add_``, the products ``torch.matmul`` with
+   TF32 off; the kernel counters are zeroed before and must read 0
+   after): (a) GraphSAGE ``minibatch_lg`` — a ``NeighborSampler`` over
+   ``gnn_full_graph_batch``'s graph (n = 232,965, m = 114,615,892) and 5
+   minibatches of ``graphsage_minibatch_stream`` (1,024 seeds, fanouts 15
+   and 10, d_feat 602) through ``forward_sampled`` and
+   ``loss_fn_sampled``; (b) the DF-incremental GraphSAGE update at
+   ``ogb_products`` (n = 2,449,029, e = 61,859,140, d_feat 100): one full
+   pass, then 3 batches of 6,186 edges rewired in place at τ_f = 1e-3,
+   each with a τ_f = 0 update equal to a full recompute (rtol 1e-5, atol
+   1e-6), the first batch's τ_f = 1e-3 update held to the same update on
+   the CPU (its output, and its stats equal), the affected fraction per
+   layer and the peak card memory; (c)
+   every family's forward and loss at ``full_graph_sm`` at its full config,
+   and egnn at ``molecule`` (128 graphs of 30 nodes, ``graph_reg``).  Every
+   output is held to the same function on the CPU (f64 for (a) and (c),
+   f32 for (b)) at the tolerance its line prints; each line prints the
+   forward's CUDA-event median of 5 and its device time split by
+   ``torch.profiler`` into gather, scatter, matmul and other beside its
+   share of the wall, marked "partial" where no two traces in a row agreed
+   or a device-bound call's kernels cover under 80 % of its wall.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
@@ -231,7 +254,7 @@ path's (phase 8), the durable path's (phase 9), the tiered path's
 (phase 10), the tiered push path's (phase 11), the integrity path's
 (phase 12), the serving path's (phase 13), the walk path's (phase 14;
 the walk kernels run only there), the sharded path's (phase 15) and the
-sharded fault path's (phase 16).
+sharded fault path's (phase 16); the GNN path (phase 17) launches none.
 Prints the kernel table as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -3956,6 +3979,405 @@ def _shard_fault_phase(bsk, hg, batches, p3: dict, full: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the GNN model zoo and the DF-incremental GNN update
+# ---------------------------------------------------------------------------
+
+GNN_SEED = 17
+GNN_REPS = 5                     # forwards timed, the median printed
+SAGE_MINIBATCHES = 5             # (a): minibatch_lg, sampled
+DF_GNN_BATCHES = 3               # (b): ogb_products, rewired in place
+DF_GNN_EDGES = 6_186             # 1e-4 of ogb_products' 61,859,140 edges
+DF_GNN_TAU_F = 1e-3
+DF_GNN_TOL = (1e-5, 1e-6)        # τ_f = 0 update vs a full recompute
+# the card (f32) against the same function on the CPU: (rtol, atol); the
+# CPU runs in f64 cast back for (a) and (c), in f32 for (b).  EGNN needs
+# atol 1e-4: at full_graph_sm its card output was 4.86e-5 and 4.62e-5 off
+# the CPU's (1.58x the allowance of rtol 1e-4, atol 1e-5 in one run), the
+# positions feeding dist² amplify the card's unordered scatter order
+GNN_TOLS = {"graphsage": (1e-4, 1e-5), "gatedgcn": (1e-4, 1e-5),
+            "egnn": (1e-4, 1e-4), "meshgraphnet": (1e-4, 1e-5)}
+# the aten op that launched a kernel → its part of a forward's device time
+GNN_OPS = {"gather": {"aten::index_select", "aten::index", "aten::gather",
+                      "aten::take", "aten::embedding"},
+           "scatter": {"aten::index_add_", "aten::index_add",
+                       "aten::scatter_reduce_", "aten::scatter_reduce",
+                       "aten::scatter_add_", "aten::index_put_",
+                       "aten::_index_put_impl_"},
+           "matmul": {"aten::mm", "aten::addmm", "aten::bmm",
+                      "aten::matmul", "aten::linear", "aten::baddbmm"}}
+GNN_DEVICE_COVER = 0.8    # a device-bound call's kernels, least share of wall
+GNN_TRACES = 3            # profiled calls at most, until two in a row agree
+
+
+def _gnn_trace(fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``: its kernels' device time
+    split by the aten op that launched each (self device time of every op),
+    and the sum over all kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(("gather", "scatter", "matmul", "other"), 0.0)
+    kernels = 0.0
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if e.device_type == DeviceType.CUDA:
+            kernels += ms
+        elif ms:
+            kind = next((k for k, ops in GNN_OPS.items() if e.key in ops),
+                        "other")
+            split[kind] += ms
+    return split, kernels
+
+
+def _gnn_split(fn, wall_ms: float, device_bound: bool = False) -> str:
+    """The device split of ``fn`` beside its share of ``wall_ms``, the
+    call's CUDA-event time.  The profiler can miss kernels, so traces are
+    taken until two in a row agree within 10 % on the kernel sum (at most
+    ``GNN_TRACES``), and a ``device_bound`` call's kernels must also cover
+    ``GNN_DEVICE_COVER`` of the wall (a launch-bound call's rightly cover
+    less).  The last trace is printed, marked partial where it fell short."""
+    prev = None
+    for _ in range(GNN_TRACES):
+        split, kernels = _gnn_trace(fn)
+        cover = kernels / wall_ms
+        agree = prev is not None and abs(kernels - prev) <= 0.1 * kernels
+        partial = not agree or (device_bound and cover < GNN_DEVICE_COVER)
+        if kernels > 0 and not partial:
+            break
+        prev = kernels
+    if kernels == 0:
+        return "device split not measured (the profiler recorded no " \
+               "device time)"
+    return (("device split partial " if partial else "device split ")
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ms of {kernels:.3f} ms of kernels ({cover:.0%} of the "
+            f"{wall_ms:.3f} ms wall)")
+
+
+def _to(x, device, dtype=None):
+    """A tensor, or each tensor of a GraphBatch / list, on ``device``; float
+    tensors cast to ``dtype`` when given."""
+    if isinstance(x, torch.Tensor):
+        t = x.to(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_replace"):
+        return [_to(v, device, dtype) for v in x]
+    if isinstance(x, dict):
+        return {k: _to(v, device, dtype) for k, v in x.items()}
+    return x._replace(**{f: _to(getattr(x, f), device, dtype)
+                         for f in x._fields
+                         if isinstance(getattr(x, f), torch.Tensor)})
+
+
+def _gnn_hold(what: str, got, ref, tol: tuple) -> str:
+    """Hold the card's ``got`` to the CPU's ``ref`` at ``tol`` (rtol, atol);
+    returns the measured error for the line."""
+    rtol, atol = tol
+    a = got.detach().double()
+    b = ref.detach().to(a.device).double()
+    _check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+           f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)} or not "
+           "finite")
+    d = (a - b).abs()
+    # the share of its allowance the worst element uses (allclose: <= 1)
+    use = float((d / (atol + rtol * b.abs())).max())
+    err, top = float(d.max()), float(b.abs().max())
+    _check(use <= 1, f"{what}: card vs CPU max abs err {err:.3e} (|ref| up "
+           f"to {top:.3g}), {use:.2f}x its allowance at rtol {rtol}, atol "
+           f"{atol}")
+    return (f"{what} max abs err {err:.3e} of |ref| {top:.3g} ({use:.2f} "
+            "of tol)")
+
+
+def _gnn_family(name: str, mod, cfg, g, labels, smi: str) -> None:
+    """(c): one family's forward and loss on the card at its full config,
+    held to the same functions on the CPU in f64, timed and split."""
+    params = mod.init(cfg, GNN_SEED, device="cpu")
+    p_d, g_d, y_d = _to(params, "cuda"), _to(g, "cuda"), _to(labels, "cuda")
+    p_c, g_c = _to(params, "cpu", torch.float64), _to(g, "cpu",
+                                                      torch.float64)
+    y_c = labels.double() if labels.is_floating_point() else labels
+
+    def fwd():
+        return mod.forward(p_d, cfg, g_d)
+
+    out, ref = fwd(), mod.forward(p_c, cfg, g_c)
+    ref32 = mod.forward(params, cfg, g)     # the CPU's own f32 error
+    loss, _ = mod.loss_fn(p_d, cfg, g_d, y_d)
+    ref_loss, _ = mod.loss_fn(p_c, cfg, g_c, y_c)
+    tol = GNN_TOLS[cfg.family]
+    if cfg.family == "egnn":
+        errs = [_gnn_hold("out", out[0], ref[0], tol),
+                _gnn_hold("pos", out[1], ref[1], tol)]
+        ref, ref32 = ref[0], ref32[0]
+    else:
+        errs = [_gnn_hold("out", out, ref, tol)]
+    errs.append(_gnn_hold("loss", loss, ref_loss, tol))
+    errs.append(f"the CPU's f32 out {float((ref32 - ref).abs().max()):.3e} "
+                "off its f64")
+    ms = _event_ms(fwd, reps=GNN_REPS)
+    print(f"gnn {name}: {cfg.n_layers}x{cfg.d_hidden}, n {g.n_pad}, e "
+          f"{g.senders.shape[0]}: forward {ms:.3f} ms (median of "
+          f"{GNN_REPS}), {_gnn_split(fwd, ms)}; card vs CPU f64: "
+          f"{'; '.join(errs)} (rtol {tol[0]}, atol {tol[1]}) [{smi}]",
+          flush=True)
+
+
+def _gnn_families(smi: str) -> None:
+    """(c): every family at full_graph_sm, and egnn at molecule."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import gnn_full_graph_batch
+    from repro_torch.models.gnn import GraphBatch, get_family
+    dims = get_arch("gatedgcn").shape("full_graph_sm").dims
+    data = gnn_full_graph_batch(n=dims["n_nodes"], e=dims["n_edges"],
+                                d_feat=dims["d_feat"], n_out=dims["n_out"],
+                                seed=GNN_SEED, with_pos=True, device="cpu")
+    for arch in ("graphsage-reddit", "gatedgcn", "egnn", "meshgraphnet"):
+        cfg = get_arch(arch).build_cfg(d_feat=dims["d_feat"],
+                                       n_out=dims["n_out"], task="node_clf")
+        pos = data["pos"] if cfg.family in ("egnn", "meshgraphnet") else None
+        g = GraphBatch(nodes=data["nodes"], senders=data["senders"],
+                       receivers=data["receivers"], pos=pos)
+        _gnn_family(f"{arch} full_graph_sm", get_family(cfg), cfg, g,
+                    data["labels"], smi)
+    # molecule: 128 graphs of 30 nodes and 64 edges, batched with offsets
+    dims = get_arch("egnn").shape("molecule").dims
+    nb, nn, ne = dims["batch"], dims["n_nodes"], dims["n_edges"]
+    rng = np.random.default_rng(GNN_SEED)
+    off = (np.arange(nb) * nn)[:, None]
+    g = GraphBatch(
+        nodes=torch.from_numpy(
+            rng.normal(size=(nb * nn, dims["d_feat"])).astype(np.float32)),
+        senders=torch.from_numpy(
+            (rng.integers(0, nn, (nb, ne)) + off).reshape(-1)),
+        receivers=torch.from_numpy(
+            (rng.integers(0, nn, (nb, ne)) + off).reshape(-1)),
+        pos=torch.from_numpy(rng.normal(size=(nb * nn, 3)).astype(np.float32)),
+        graph_id=torch.from_numpy(np.repeat(np.arange(nb), nn)),
+        n_graphs=nb)
+    labels = torch.from_numpy(
+        rng.normal(size=(nb, dims["n_out"])).astype(np.float32))
+    cfg = get_arch("egnn").build_cfg(d_feat=dims["d_feat"],
+                                     n_out=dims["n_out"], task="graph_reg")
+    _gnn_family("egnn molecule", get_family(cfg), cfg, g, labels, smi)
+
+
+def _sage_sampled(smi: str) -> None:
+    """(a): GraphSAGE at minibatch_lg, its sampler over the shape's whole
+    graph, 5 minibatches through the data pipeline."""
+    from repro_torch.configs import get_arch, graphsage_reddit
+    from repro_torch.data.pipeline import (gnn_full_graph_batch,
+                                           graphsage_minibatch_stream)
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.models.gnn import graphsage
+    dims = get_arch("graphsage-reddit").shape("minibatch_lg").dims
+    cfg = graphsage_reddit.build_cfg(d_feat=dims["d_feat"],
+                                     n_out=dims["n_out"])
+    fanouts = (dims["fanout1"], dims["fanout2"])
+    t0 = time.perf_counter()
+    data = gnn_full_graph_batch(n=dims["n_nodes"], e=dims["n_edges"],
+                                d_feat=dims["d_feat"], n_out=dims["n_out"],
+                                seed=GNN_SEED, device="cpu")
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(dims["n_nodes"], data["senders"].numpy(),
+                              data["receivers"].numpy())
+    t_csr = time.perf_counter() - t0
+    print(f"graphsage minibatch_lg: graph n {dims['n_nodes']}, m "
+          f"{dims['n_edges']} made in {t_gen:.1f} s, sampler CSR in "
+          f"{t_csr:.1f} s [{smi}]", flush=True)
+    feats, labels = data["nodes"].numpy(), data["labels"].numpy()
+    del data
+    params = graphsage.init(cfg, GNN_SEED, device="cpu")
+    p_d, p_c = _to(params, "cuda"), _to(params, "cpu", torch.float64)
+    stream = graphsage_minibatch_stream(
+        sampler, feats, labels, batch_nodes=dims["batch_nodes"],
+        fanouts=fanouts, seed=GNN_SEED, device="cuda")
+    tol = GNN_TOLS["graphsage"]
+    host_s, errs = [], []
+    for i in range(SAGE_MINIBATCHES):
+        t0 = time.perf_counter()
+        batch = next(stream)
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+        hops = [batch[f"hop{k}"] for k in range(cfg.n_layers + 1)]
+        _check(tuple(hops[-1].shape) == (dims["batch_nodes"],) + fanouts
+               + (dims["d_feat"],), f"hop tensor {tuple(hops[-1].shape)}")
+        logits = graphsage.forward_sampled(p_d, cfg, hops)
+        loss, _ = graphsage.loss_fn_sampled(p_d, cfg, hops, batch["labels"])
+        hops_c = _to(hops, "cpu", torch.float64)
+        ref = graphsage.forward_sampled(p_c, cfg, hops_c)
+        ref_loss, _ = graphsage.loss_fn_sampled(p_c, cfg, hops_c,
+                                                batch["labels"].cpu())
+        errs.append(_gnn_hold(f"minibatch {i} logits", logits, ref, tol)
+                    + "; " + _gnn_hold("loss", loss, ref_loss, tol))
+
+    def fwd():
+        return graphsage.forward_sampled(p_d, cfg, hops)
+
+    ms = _event_ms(fwd, reps=GNN_REPS)
+    print(f"graphsage minibatch_lg sampled: {SAGE_MINIBATCHES} minibatches "
+          f"of {dims['batch_nodes']} seeds, fanouts {fanouts}, hop-2 "
+          f"{tuple(hops[-1].shape)} f32 ({hops[-1].nbytes / 1e6:.1f} MB); "
+          f"host sample + gather + upload {np.median(host_s) * 1e3:.1f} ms "
+          f"(median); forward_sampled {ms:.3f} ms (median of {GNN_REPS}), "
+          f"{_gnn_split(fwd, ms)} [{smi}]", flush=True)
+    print(f"graphsage minibatch_lg, card vs CPU f64 (rtol {tol[0]}, atol "
+          f"{tol[1]}): {' | '.join(errs)} [{smi}]", flush=True)
+
+
+def _df_gnn(smi: str) -> None:
+    """(b): the DF-incremental GraphSAGE update at ogb_products, full
+    batch: one full pass, then 3 batches rewired in place."""
+    from repro_torch.configs import get_arch, graphsage_reddit
+    from repro_torch.core.incremental import (edge_update_sources,
+                                              full_gnn_layers,
+                                              incremental_gnn_update)
+    from repro_torch.data.pipeline import gnn_full_graph_batch
+    from repro_torch.models.gnn import GraphBatch, graphsage
+    dims = get_arch("graphsage-reddit").shape("ogb_products").dims
+    n, e = dims["n_nodes"], dims["n_edges"]
+    cfg = graphsage_reddit.build_cfg(d_feat=dims["d_feat"],
+                                     n_out=dims["n_out"])
+    data = gnn_full_graph_batch(n=n, e=e, d_feat=dims["d_feat"],
+                                n_out=dims["n_out"], seed=GNN_SEED + 1,
+                                device="cpu")
+    params = graphsage.init(cfg, GNN_SEED, device="cpu")
+    fns_c = full_gnn_layers(graphsage, params, cfg)
+    fns_d = full_gnn_layers(graphsage, _to(params, "cuda"), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    g_c = GraphBatch(nodes=data["nodes"], senders=data["senders"],
+                     receivers=data["receivers"])
+    g_d = _to(g_c, "cuda")
+    snd_h, rcv_h = g_c.senders.numpy(), g_c.receivers.numpy()  # g_c's own
+
+    def full_pass(g, fns):
+        cache = [g.nodes]
+        for fn in fns:
+            cache.append(fn(g, cache[-1]))
+        return cache
+
+    cache = full_pass(g_d, fns_d)
+    ms_full = _event_ms(lambda: full_pass(g_d, fns_d), reps=3)
+    print(f"graphsage ogb_products full pass: n {n}, e {e}, "
+          f"{cfg.n_layers}x{cfg.d_hidden}: {ms_full:.3f} ms (median of 3), "
+          f"{_gnn_split(lambda: full_pass(g_d, fns_d), ms_full, True)} "
+          f"[{smi}]", flush=True)
+    tol = GNN_TOLS["graphsage"]
+    rng = np.random.default_rng(GNN_SEED)
+    for b in range(DF_GNN_BATCHES):
+        # rewire k edges in place, as tests/test_ckpt_and_substrate.py does;
+        # the card takes the host's final values (a repeated index too)
+        idx = rng.integers(0, e, DF_GNN_EDGES)
+        old = np.stack([snd_h[idx], rcv_h[idx]], 1)
+        snd_h[idx] = rng.integers(0, n, DF_GNN_EDGES)
+        rcv_h[idx] = rng.integers(0, n, DF_GNN_EDGES)
+        new = np.stack([snd_h[idx], rcv_h[idx]], 1)
+        it = torch.from_numpy(idx).cuda()
+        g_d.senders[it] = torch.from_numpy(snd_h[idx]).cuda()
+        g_d.receivers[it] = torch.from_numpy(rcv_h[idx]).cuda()
+        sources = edge_update_sources(n, old, new, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, _, st = incremental_gnn_update(fns_d, g_d, g_d.nodes, cache,
+                                          sources, tau_f=DF_GNN_TAU_F)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        _, cache0, st0 = incremental_gnn_update(fns_d, g_d, g_d.nodes, cache,
+                                                sources, tau_f=0.0)
+        full = full_pass(g_d, fns_d)
+        for i in (1, 2):
+            a, c = cache0[i], full[i]
+            _check(bool(torch.allclose(a, c, rtol=DF_GNN_TOL[0],
+                                       atol=DF_GNN_TOL[1])),
+                   f"df gnn batch {b}: the τ_f = 0 update's layer {i} is "
+                   f"{float((a - c).abs().max()):.3e} off a full recompute")
+        err0 = float((cache0[-1] - full[-1]).abs().max())
+        dev_tau = float((h - full[-1]).abs().max())
+        _check(st["recomputed"] < st["total"] and st0["recomputed"]
+               < st0["total"], f"df gnn batch {b}: the frontier did not "
+               f"prune: {st}, {st0}")
+        line = ""
+        if b == 0:
+            # the full recompute on the CPU (g_c holds the rewired graph):
+            # the card's full recompute and its τ_f = 0 update held to it
+            t1 = time.perf_counter()
+            full_c = full_pass(g_c, fns_c)
+            errs = [_gnn_hold(f"{what} layer {i}", got[i], full_c[i], tol)
+                    for what, got in (("full", full), ("τ_f 0 update",
+                                                       cache0))
+                    for i in (1, 2)]
+            t_full = time.perf_counter() - t1
+            del full_c
+            # the τ_f update on the CPU from the same inputs: the card's
+            # pre-batch cache, the rewired graph, the batch's sources
+            t1 = time.perf_counter()
+            h_c, _, st_c = incremental_gnn_update(
+                fns_c, g_c, g_c.nodes, _to(cache, "cpu"),
+                edge_update_sources(n, old, new, device="cpu"),
+                tau_f=DF_GNN_TAU_F)
+            errs.append(_gnn_hold(f"τ_f {DF_GNN_TAU_F} update", h, h_c, tol))
+            _check(st == st_c, f"df gnn batch {b}: the τ_f {DF_GNN_TAU_F} "
+                   f"update's stats {st} on the card, {st_c} on the CPU")
+            line = (f"; CPU f32 full recompute {t_full:.1f} s, τ_f "
+                    f"{DF_GNN_TAU_F} update {time.perf_counter() - t1:.1f} s "
+                    f"(its stats equal the card's); card vs CPU: "
+                    f"{'; '.join(errs)}")
+            del h_c
+        if b == 1:
+            split = _gnn_split(lambda: incremental_gnn_update(
+                fns_d, g_d, g_d.nodes, cache, sources, tau_f=DF_GNN_TAU_F),
+                wall_ms, True)
+            line = f"; {split}"
+        fr = [f"{a / n:.4f}" for a in st["affected"]]
+        print(f"df gnn batch {b}: {DF_GNN_EDGES} edges rewired, update "
+              f"{wall_ms:.1f} ms wall at τ_f {DF_GNN_TAU_F}, affected "
+              f"fraction per layer {fr} (recomputed {st['recomputed']} of "
+              f"{st['total']}; τ_f 0: {st0['affected']}), max |h − full| "
+              f"{dev_tau:.3e}, τ_f = 0 update vs full recompute "
+              f"{err0:.3e}{line} [{smi}]", flush=True)
+        cache = full          # the exact cache, so each τ_f = 0 check holds
+        del full, cache0, h
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    print(f"df gnn ogb_products: peak card memory {peak:.2f} GB above the "
+          f"phase's start [{smi}]", flush=True)
+
+
+def _gnn_phase(kernel_fns, smi: str) -> None:
+    """Phase 17: (a) GraphSAGE sampled at minibatch_lg, (b) the
+    DF-incremental GraphSAGE update at ogb_products, (c) every family at
+    full_graph_sm and egnn at molecule.  No hand-written kernel is on this
+    path: the counters are zeroed before and must read 0 after."""
+    t_phase = time.perf_counter()
+    _check(torch.backends.cuda.matmul.allow_tf32 is False,
+           "TF32 is on: the GNN products must stay IEEE f32")
+    for fn in kernel_fns:
+        fn.launches = 0
+    parts = {}
+    for part, fn in (("(c) families", _gnn_families),
+                     ("(a) sampled", _sage_sampled),
+                     ("(b) df-incremental", _df_gnn)):
+        t0 = time.perf_counter()
+        fn(smi)
+        torch.cuda.empty_cache()
+        parts[part] = round(time.perf_counter() - t0, 1)
+    launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    print(f"launches on the GNN path: {launches} (message passing is "
+          f"index_select / index_add_, the products torch.matmul); phase 17 "
+          f"took {time.perf_counter() - t_phase:.1f} s ({parts} s, torch "
+          f"threads {torch.get_num_threads()}) [{smi}]", flush=True)
+    _check(not any(launches.values()), "the GNN path launched a PageRank "
+           "kernel")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4167,6 +4589,12 @@ def main() -> None:
 
     # -- phase 16: the sharded fault path, same graph and batches -----------
     fault_launches = _shard_fault_phase(bsk, hg, batches, p3, full, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 17: the GNN model zoo and the DF-incremental GNN update ------
+    _gnn_phase((bsk.block_spmv_cuda, bsk.block_spmv_active_cuda,
+                bws.blocked_sweep_cuda, wk.walk_regen_cuda,
+                wk.walk_touch_cuda), smi)
     for row in table:
         row["launches"] = sum(
             path[row["name"]] for path in (

@@ -498,11 +498,26 @@ class PageRankService:
             if fault is not None and fault.kind == "dead":
                 sess = self.sessions[stream]
                 if sess is not None:
-                    # crash-stop, not a clean close(): drop the service
-                    # backref first so _detach doesn't run — the slot stays
-                    # registered (dead) and its queue survives for the drain
-                    sess._service = None
-                    sess.close()
+                    # crash-stop and hand-off in one step under the service
+                    # lock, so the watchdog (which reads ``closed`` without
+                    # it) cannot fail the slot over between the close and
+                    # the error being recorded (ROADMAP C 11)
+                    with self._lock:
+                        # not a clean close(): drop the service backref
+                        # first so _detach doesn't run — the slot stays
+                        # registered (dead) and its queue survives for the
+                        # drain
+                        sess._service = None
+                        sess.close()
+                        if gen == self._slot_gen[stream]:
+                            err = repr(ValueError(
+                                f"stream {stream} session is closed"))
+                            for req in reqs:
+                                req.attempts = 1
+                                req.error = err
+                            self._requeue(stream, reqs, gen)
+                            self._dead.setdefault(stream, err)
+                            return False
             if gen != self._slot_gen[stream]:
                 # the watchdog failed this slot over while we stalled: the
                 # respawned slot owns these requests now

@@ -1,13 +1,13 @@
 """Carry state from the JAX package into the port (no counterpart in
 ``src/repro``).
 
-Both functions take plain numpy arrays — the form any JAX array turns into
+Every function takes plain numpy arrays — the form any JAX array turns into
 with ``np.asarray`` — so a port object can start from exactly the state a
 JAX object holds without this package importing JAX.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -15,7 +15,7 @@ import torch
 from repro_torch.api.config import EngineConfig
 from repro_torch.api.session import PageRankSession
 from repro_torch.core.graph import HostGraph
-from repro_torch.device import resolve_device
+from repro_torch.device import as_torch_dtype, resolve_device
 from repro_torch.kernels.block_spmv import ops
 
 
@@ -59,3 +59,20 @@ def session_from_numpy(n: int, edges: np.ndarray, ranks: np.ndarray,
         r[:res.shape[0]] = res[:sess.n_pad]
         sess._residual = r.to(sess.device)
     return sess
+
+
+def gnn_params_from_numpy(params: Mapping[str, np.ndarray], *,
+                          device="cuda", dtype=None
+                          ) -> Dict[str, torch.Tensor]:
+    """The port's GNN parameter dict from the JAX package's flat one
+    (``name -> array``, e.g. ``{k: np.asarray(v) for k, v in
+    repro.models.gnn.graphsage.init(cfg, key).items()}``): same names, same
+    values, stacked ``layers/*`` leaves keeping their leading layer axis;
+    ``dtype`` casts every leaf (default: each array's own)."""
+    dev = resolve_device(device)
+    dt = None if dtype is None else as_torch_dtype(dtype)
+    out = {}
+    for name, a in params.items():
+        t = torch.from_numpy(np.array(a))          # owned copy
+        out[name] = t.to(device=dev, dtype=dt if dt is not None else t.dtype)
+    return out

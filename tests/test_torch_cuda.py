@@ -1454,3 +1454,112 @@ def test_cuda_faulted_sharded_session_matches_cpu(cuda_device):
     assert rg.n_shards == rc.n_shards == 7
     assert gpu.device_footprint == (torch.cuda.current_device(),)
     assert (cpu._x_full, cpu._x_delta) == (gpu._x_full, gpu._x_delta)
+
+
+# ---------------------------------------------------------------------------
+# the GNN model zoo and the DF-incremental GNN update (no hand-written
+# kernel: index_select / index_add_ / scatter_reduce and torch.matmul)
+# ---------------------------------------------------------------------------
+
+def _gnn_graph(n, e, d_feat, seed, **kw):
+    from repro_torch.models.gnn import GraphBatch
+    rng = np.random.default_rng(seed)
+    return GraphBatch(
+        nodes=torch.from_numpy(rng.normal(size=(n, d_feat)).astype(np.float32)),
+        senders=torch.from_numpy(rng.integers(0, n, e).astype(np.int32)),
+        receivers=torch.from_numpy(rng.integers(0, n, e).astype(np.int32)),
+        pos=torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
+        **kw)
+
+
+def _gnn_to(g, dev):
+    return g._replace(**{f: getattr(g, f).to(dev) for f in g._fields
+                         if isinstance(getattr(g, f), torch.Tensor)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["graphsage-reddit", "gatedgcn", "egnn",
+                                  "meshgraphnet"])
+def test_cuda_gnn_family_matches_cpu(cuda_device, arch):
+    """Each family's forward and loss at a narrow config (3 layers, width
+    32) on the card against the CPU, f32 both (rtol 1e-4, atol 1e-5: the
+    card's unordered index_add_ and another GEMM order)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import get_family
+    cfg = get_arch(arch).build_cfg(d_feat=24, n_out=5, task="node_clf",
+                                   n_layers=3, d_hidden=32)
+    mod = get_family(cfg)
+    params = mod.init(cfg, 0, device="cpu")
+    g = _gnn_graph(500, 3000, 24, seed=1)
+    labels = torch.from_numpy(np.random.default_rng(2).integers(0, 5, 500))
+    p_d = {k: v.to(cuda_device) for k, v in params.items()}
+    g_d = _gnn_to(g, cuda_device)
+    out_c, out_d = mod.forward(params, cfg, g), mod.forward(p_d, cfg, g_d)
+    if cfg.family == "egnn":
+        torch.testing.assert_close(out_d[1].cpu(), out_c[1], rtol=1e-4,
+                                   atol=1e-5)
+        out_c, out_d = out_c[0], out_d[0]
+    torch.testing.assert_close(out_d.cpu(), out_c, rtol=1e-4, atol=1e-5)
+    lc, _ = mod.loss_fn(params, cfg, g, labels)
+    ld, _ = mod.loss_fn(p_d, cfg, g_d, labels.to(cuda_device))
+    torch.testing.assert_close(ld.cpu(), lc, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_sampled_and_incremental_match_cpu(cuda_device):
+    """GraphSAGE's sampled forward and the DF-incremental update on the card
+    against the CPU: outputs within rtol 1e-4, atol 1e-5; the τ_f = 0
+    update equals a full recompute on the card (rtol 1e-5, atol 1e-6)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import incremental as inc
+    from repro_torch.data.pipeline import graphsage_minibatch_stream
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.models.gnn import graphsage
+    cfg = get_arch("graphsage-reddit").build_cfg(d_feat=16, n_out=4)
+    params = graphsage.init(cfg, 0, device="cpu")
+    p_d = {k: v.to(cuda_device) for k, v in params.items()}
+    g = _gnn_graph(1000, 6000, 16, seed=3)
+    sampler = NeighborSampler(1000, g.senders.numpy(), g.receivers.numpy())
+    kw = dict(batch_nodes=32, fanouts=(5, 3), seed=4)
+    feats, labels = g.nodes.numpy(), np.zeros(1000, np.int64)
+    bc = next(graphsage_minibatch_stream(sampler, feats, labels,
+                                         device="cpu", **kw))
+    bd = next(graphsage_minibatch_stream(sampler, feats, labels,
+                                         device=cuda_device, **kw))
+    hc = [bc[f"hop{i}"] for i in range(3)]
+    hd = [bd[f"hop{i}"] for i in range(3)]
+    torch.testing.assert_close(graphsage.forward_sampled(p_d, cfg, hd).cpu(),
+                               graphsage.forward_sampled(params, cfg, hc),
+                               rtol=1e-4, atol=1e-5)
+    fns_c = inc.full_gnn_layers(graphsage, params, cfg)
+    fns_d = inc.full_gnn_layers(graphsage, p_d, cfg)
+    g_d = _gnn_to(g, cuda_device)
+    cache_c, cache_d = [g.nodes], [g_d.nodes]
+    for fc, fd in zip(fns_c, fns_d):
+        cache_c.append(fc(g, cache_c[-1]))
+        cache_d.append(fd(g_d, cache_d[-1]))
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, 6000, 8)
+    old = np.stack([g.senders.numpy()[idx], g.receivers.numpy()[idx]], 1)
+    g.senders[idx] = torch.from_numpy(rng.integers(0, 1000, 8).astype(np.int32))
+    g.receivers[idx] = torch.from_numpy(
+        rng.integers(0, 1000, 8).astype(np.int32))
+    new = np.stack([g.senders.numpy()[idx], g.receivers.numpy()[idx]], 1)
+    g_d = _gnn_to(g, cuda_device)
+    for tau_f in (0.0, 1e-3):
+        hc_, _, sc = inc.incremental_gnn_update(
+            fns_c, g, g.nodes, cache_c,
+            inc.edge_update_sources(1000, old, new, device="cpu"),
+            tau_f=tau_f)
+        hd_, _, sd = inc.incremental_gnn_update(
+            fns_d, g_d, g_d.nodes, cache_d,
+            inc.edge_update_sources(1000, old, new, device=cuda_device),
+            tau_f=tau_f)
+        torch.testing.assert_close(hd_.cpu(), hc_, rtol=1e-4, atol=1e-5)
+        assert sd["total"] == sc["total"]
+        assert sd["recomputed"] < sd["total"]
+        if tau_f == 0.0:
+            full = g_d.nodes
+            for fd in fns_d:
+                full = fd(g_d, full)
+            torch.testing.assert_close(hd_, full, rtol=1e-5, atol=1e-6)

@@ -27,7 +27,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.kernels.nvcc",
               "repro_torch.kernels.blocked_sweep.blocked_sweep",
               "repro_torch.core.distributed", "repro_torch.graphs.partition",
-              "repro_torch.dist.compression"):
+              "repro_torch.dist.compression", "repro_torch.models.gnn",
+              "repro_torch.models.gnn.common", "repro_torch.configs",
+              "repro_torch.configs.registry", "repro_torch.graphs.sampler",
+              "repro_torch.data.pipeline"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -21,6 +21,7 @@ the read view owns its storage and holds only ``R`` and ``valid``, a CPU
 slot fails over onto the CPU, the repair ladder's ``restore`` rung keeps
 the service's backref, and a walk slot serves ``ppr_query``.
 """
+import threading
 import time
 import warnings
 
@@ -548,6 +549,53 @@ class TestFailoverUnderLoad:
         assert ts.sessions[0].hg.has_edges(e).all()
         assert _oracle_linf(ts.sessions[0].ranks, jg) < 1e-8
         _same_service(js, ts)
+
+    def test_killed_dispatch_keeps_its_error_under_a_racing_watchdog(
+            self, hgs, tmp_path):
+        """A watchdog pass that runs while the killed dispatch is closing
+        its session (ROADMAP C 11) must still find the killed request
+        erred with "session is closed" and re-queued, and drain it to the
+        respawn; before the crash and hand-off were one step under the
+        service lock, the watchdog failed the slot over first and the
+        dispatch returned without recording the error."""
+        _, b = self._durable_pair(hgs, tmp_path, "race")
+        svc = PageRankService([b])
+        bs, cur = _batches(hgs[0], 2, seed0=70)
+        svc.inject_session_fault(0, after_dispatches=1, kind="dead")
+        svc.submit(0, *bs[0])
+        svc.step()
+        sess, orig_close, polls = svc.sessions[0], b.close, []
+
+        def close_then_watchdog():
+            orig_close()
+            if polls:                   # one racing pass, on the first close
+                return
+            # a watchdog thread's pass, after _closed is set and before
+            # close() returns to the dispatch
+            t = threading.Thread(target=svc._poll_watchdog, daemon=True)
+            polls.append(t)
+            t.start()
+            t.join(timeout=2.0)
+
+        sess.close = close_then_watchdog
+        svc.submit(0, *bs[1])
+        svc.step()
+        polls[0].join(timeout=60)
+        assert not polls[0].is_alive()
+        done = svc.run_until_drained()
+        assert len(done) == 2 and all(r.done for r in done)
+        erred = [r for r in svc.finished if r.error]
+        assert len(erred) == 1 and erred[0].stream == 0, \
+            [(r.stream, r.error) for r in svc.finished]
+        assert "session is closed" in erred[0].error
+        assert erred[0].uid == done[1].uid
+        rep = svc.report()
+        assert rep["requests_done"] == 2 and not svc._dead
+        assert len(rep["watchdog"]) == 1
+        assert rep["watchdog"][0]["kind"] == "dead"
+        assert rep["watchdog"][0]["drained_requests"] == 1
+        assert svc.sessions[0] is not sess
+        assert _oracle_linf(svc.sessions[0].ranks, cur) < 1e-8
 
     def test_dead_slot_without_store_sheds_with_reason(self, hgs):
         jg, tg = hgs
