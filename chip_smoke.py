@@ -226,19 +226,22 @@ Phases, each of which raises (non-zero exit) on any failed check:
    invariants and refuses a ``tile`` corruption with ``ValueError``;
 17. the GNN model zoo at the registry's published widths on synthetic data
    from a seed (no hand-written kernel: message passing is
-   ``index_select`` / ``index_add_``, the products ``torch.matmul`` with
-   TF32 off; the kernel counters are zeroed before and must read 0
-   after): (a) GraphSAGE ``minibatch_lg`` — a ``NeighborSampler`` over
-   ``gnn_full_graph_batch``'s graph (n = 232,965, m = 114,615,892) and 5
-   minibatches of ``graphsage_minibatch_stream`` (1,024 seeds, fanouts 15
+   ``index_select`` and an edge-ordered ``segment_reduce``, the products
+   ``torch.matmul`` with TF32 off; the kernel counters are zeroed before
+   and must read 0 after): (a) GraphSAGE ``minibatch_lg`` — a
+   ``NeighborSampler`` over ``gnn_full_graph_batch``'s graph (n =
+   232,965, m = 114,615,892) and 5 minibatches of
+   ``graphsage_minibatch_stream`` (1,024 seeds, fanouts 15
    and 10, d_feat 602) through ``forward_sampled`` and
    ``loss_fn_sampled``; (b) the DF-incremental GraphSAGE update at
    ``ogb_products`` (n = 2,449,029, e = 61,859,140, d_feat 100): one full
-   pass, then 3 batches of 6,186 edges rewired in place at τ_f = 1e-3,
-   each with a τ_f = 0 update equal to a full recompute (rtol 1e-5, atol
-   1e-6), the first batch's τ_f = 1e-3 update held to the same update on
-   the CPU (its output, and its stats equal), the affected fraction per
-   layer and the peak card memory; (c)
+   pass (a second one equal to it bit for bit), then 3 batches of 6,186
+   edges rewired in place at τ_f = 1e-3, each with a τ_f = 0 update equal
+   to a full recompute (rtol 1e-5, atol 1e-6), the first batch's τ_f =
+   1e-3 update held to the same update on the CPU (its output, and its
+   stats equal) and its τ_f = 0 stats equal to the same update on the CPU
+   from the CPU's own pre-batch pass, the affected fraction per layer and
+   the peak card memory (≤ 50 GB); (c)
    every family's forward and loss at ``full_graph_sm`` at its full config,
    and egnn at ``molecule`` (128 graphs of 30 nodes, ``graph_reg``).  Every
    output is held to the same function on the CPU (f64 for (a) and (c),
@@ -246,7 +249,24 @@ Phases, each of which raises (non-zero exit) on any failed check:
    forward's CUDA-event median of 5 and its device time split by
    ``torch.profiler`` into gather, scatter, matmul and other beside its
    share of the wall, marked "partial" where no two traces in a row agreed
-   or a device-bound call's kernels cover under 80 % of its wall.
+   or a device-bound call's kernels cover under 80 % of its wall;
+18. the LM serve path at the published widths, bf16 activations (no
+   hand-written kernel: ``torch.matmul``, softmax and masks, the scores and
+   logits in IEEE f32; the kernel counters are zeroed before and must read
+   0 after), params drawn on the card from a seeded generator with wq and
+   wk rescaled to a fan-in of d_model (the reference's rule draws them at
+   fan-in = heads, which makes every softmax one-hot and the logits
+   chaotic in rounding): ``qwen1.5-4b`` (all 40 layers, f32 params),
+   ``phi4-mini-3.8b`` (32, an f8 KV cache), ``granite-moe-3b-a800m`` (32),
+   ``mixtral-8x22b`` (2 of 56, a 4,608-token prompt through its 4,096-slot
+   ring) and ``nemotron-4-340b`` (1 of 96), MoE at capacity factor 8.0:
+   ``prefill`` of 4 prompts (512 tokens) and 16 greedy ``decode_step`` s,
+   timed (CUDA events, medians), with the peak card memory; (i) at each
+   config's full width, 2 layers, f32 activations: ``forward``,
+   ``prefill`` and ``decode_step`` held to the same on the CPU from the
+   same weights; (ii) at the timed depth and dtype: every logit finite,
+   prefill's and each decode step's logits held to ``forward``'s at the
+   same position.
 
 The kernel JSON line's ``launches`` add the pull path's (phase 3), the
 push path's (phase 6), the variant matrix's (phase 7), the blocked
@@ -254,8 +274,11 @@ path's (phase 8), the durable path's (phase 9), the tiered path's
 (phase 10), the tiered push path's (phase 11), the integrity path's
 (phase 12), the serving path's (phase 13), the walk path's (phase 14;
 the walk kernels run only there), the sharded path's (phase 15) and the
-sharded fault path's (phase 16); the GNN path (phase 17) launches none.
-Prints the kernel table as one JSON line, then as its last line
+sharded fault path's (phase 16); the GNN path (phase 17) and the LM
+path (phase 18) launch none.
+``python3 chip_smoke.py --phase 17`` (or ``18``) runs that model phase
+alone and prints no result line.  Prints the kernel table as one JSON
+line, then as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.
@@ -3989,11 +4012,12 @@ DF_GNN_BATCHES = 3               # (b): ogb_products, rewired in place
 DF_GNN_EDGES = 6_186             # 1e-4 of ogb_products' 61,859,140 edges
 DF_GNN_TAU_F = 1e-3
 DF_GNN_TOL = (1e-5, 1e-6)        # τ_f = 0 update vs a full recompute
+DF_GNN_PEAK_GB = 50.0            # (b): card memory above the phase's start
 # the card (f32) against the same function on the CPU: (rtol, atol); the
 # CPU runs in f64 cast back for (a) and (c), in f32 for (b).  EGNN needs
 # atol 1e-4: at full_graph_sm its card output was 4.86e-5 and 4.62e-5 off
 # the CPU's (1.58x the allowance of rtol 1e-4, atol 1e-5 in one run), the
-# positions feeding dist² amplify the card's unordered scatter order
+# positions feeding dist² amplify rounding
 GNN_TOLS = {"graphsage": (1e-4, 1e-5), "gatedgcn": (1e-4, 1e-5),
             "egnn": (1e-4, 1e-4), "meshgraphnet": (1e-4, 1e-5)}
 # the aten op that launched a kernel → its part of a forward's device time
@@ -4002,7 +4026,8 @@ GNN_OPS = {"gather": {"aten::index_select", "aten::index", "aten::gather",
            "scatter": {"aten::index_add_", "aten::index_add",
                        "aten::scatter_reduce_", "aten::scatter_reduce",
                        "aten::scatter_add_", "aten::index_put_",
-                       "aten::_index_put_impl_"},
+                       "aten::_index_put_impl_", "aten::segment_reduce",
+                       "aten::_segment_reduce"},
            "matmul": {"aten::mm", "aten::addmm", "aten::bmm",
                       "aten::matmul", "aten::linear", "aten::baddbmm"}}
 GNN_DEVICE_COVER = 0.8    # a device-bound call's kernels, least share of wall
@@ -4231,9 +4256,30 @@ def _sage_sampled(smi: str) -> None:
           f"{tol[1]}): {' | '.join(errs)} [{smi}]", flush=True)
 
 
+def _memo_layers(fns):
+    """Each layer function with its last call kept: called again on the
+    same graph, unchanged (the ids' version counters), with an equal input,
+    it returns the kept output.  The layers sum in edge order, so that is
+    the value it would compute; the CPU's updates of (b) share the layers
+    of its full recompute this way instead of computing them again."""
+    def wrap(fn):
+        last = {}
+
+        def f(g, h):
+            key = (id(g), g.senders._version, g.receivers._version)
+            if last.get("key") == key and torch.equal(last["h"], h):
+                return last["out"]
+            out = fn(g, h)
+            last.update(key=key, h=h, out=out)
+            return out
+        return f
+    return [wrap(fn) for fn in fns]
+
+
 def _df_gnn(smi: str) -> None:
     """(b): the DF-incremental GraphSAGE update at ogb_products, full
-    batch: one full pass, then 3 batches rewired in place."""
+    batch: one full pass (twice, bit for bit), then 3 batches rewired in
+    place."""
     from repro_torch.configs import get_arch, graphsage_reddit
     from repro_torch.core.incremental import (edge_update_sources,
                                               full_gnn_layers,
@@ -4248,7 +4294,7 @@ def _df_gnn(smi: str) -> None:
                                 n_out=dims["n_out"], seed=GNN_SEED + 1,
                                 device="cpu")
     params = graphsage.init(cfg, GNN_SEED, device="cpu")
-    fns_c = full_gnn_layers(graphsage, params, cfg)
+    fns_c = _memo_layers(full_gnn_layers(graphsage, params, cfg))
     fns_d = full_gnn_layers(graphsage, _to(params, "cuda"), cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4256,7 +4302,6 @@ def _df_gnn(smi: str) -> None:
     g_c = GraphBatch(nodes=data["nodes"], senders=data["senders"],
                      receivers=data["receivers"])
     g_d = _to(g_c, "cuda")
-    snd_h, rcv_h = g_c.senders.numpy(), g_c.receivers.numpy()  # g_c's own
 
     def full_pass(g, fns):
         cache = [g.nodes]
@@ -4265,24 +4310,38 @@ def _df_gnn(smi: str) -> None:
         return cache
 
     cache = full_pass(g_d, fns_d)
+    again = full_pass(g_d, fns_d)
+    _check(all(torch.equal(a, b) for a, b in zip(cache, again)),
+           "df gnn: two full passes on the card differ")
+    del again
     ms_full = _event_ms(lambda: full_pass(g_d, fns_d), reps=3)
     print(f"graphsage ogb_products full pass: n {n}, e {e}, "
-          f"{cfg.n_layers}x{cfg.d_hidden}: {ms_full:.3f} ms (median of 3), "
+          f"{cfg.n_layers}x{cfg.d_hidden}: {ms_full:.3f} ms (median of 3; "
+          f"a second pass equal bit for bit), "
           f"{_gnn_split(lambda: full_pass(g_d, fns_d), ms_full, True)} "
           f"[{smi}]", flush=True)
+    t1 = time.perf_counter()
+    cache_c = full_pass(g_c, fns_c)     # the CPU's own pre-batch cache
+    t_pre = time.perf_counter() - t1
     tol = GNN_TOLS["graphsage"]
     rng = np.random.default_rng(GNN_SEED)
     for b in range(DF_GNN_BATCHES):
-        # rewire k edges in place, as tests/test_ckpt_and_substrate.py does;
-        # the card takes the host's final values (a repeated index too)
-        idx = rng.integers(0, e, DF_GNN_EDGES)
-        old = np.stack([snd_h[idx], rcv_h[idx]], 1)
-        snd_h[idx] = rng.integers(0, n, DF_GNN_EDGES)
-        rcv_h[idx] = rng.integers(0, n, DF_GNN_EDGES)
-        new = np.stack([snd_h[idx], rcv_h[idx]], 1)
-        it = torch.from_numpy(idx).cuda()
-        g_d.senders[it] = torch.from_numpy(snd_h[idx]).cuda()
-        g_d.receivers[it] = torch.from_numpy(rcv_h[idx]).cuda()
+        # rewire k edges in place through torch (the ids' version counters
+        # move, so their destination order is sorted again), as
+        # tests/test_ckpt_and_substrate.py does; the card takes the host's
+        # final values (a repeated index too)
+        idx = torch.from_numpy(rng.integers(0, e, DF_GNN_EDGES))
+        old = np.stack([g_c.senders[idx].numpy(),
+                        g_c.receivers[idx].numpy()], 1)
+        g_c.senders[idx] = torch.from_numpy(
+            rng.integers(0, n, DF_GNN_EDGES).astype(np.int32))
+        g_c.receivers[idx] = torch.from_numpy(
+            rng.integers(0, n, DF_GNN_EDGES).astype(np.int32))
+        new = np.stack([g_c.senders[idx].numpy(),
+                        g_c.receivers[idx].numpy()], 1)
+        it = idx.cuda()
+        g_d.senders[it] = g_c.senders[idx].cuda()
+        g_d.receivers[it] = g_c.receivers[idx].cuda()
         sources = edge_update_sources(n, old, new, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4316,21 +4375,28 @@ def _df_gnn(smi: str) -> None:
                     for i in (1, 2)]
             t_full = time.perf_counter() - t1
             del full_c
-            # the τ_f update on the CPU from the same inputs: the card's
-            # pre-batch cache, the rewired graph, the batch's sources
+            # both updates on the CPU from the same inputs (the rewired
+            # graph, the batch's sources) and the CPU's own pre-batch pass:
+            # the card's stats must be the CPU's, at τ_f = 0 too (ROADMAP
+            # C 12); their layers are the full recompute's, kept by the memo
             t1 = time.perf_counter()
+            sources_c = edge_update_sources(n, old, new, device="cpu")
+            _, _, st0_c = incremental_gnn_update(
+                fns_c, g_c, g_c.nodes, cache_c, sources_c, tau_f=0.0)
+            _check(st0 == st0_c, f"df gnn batch {b}: the τ_f = 0 update's "
+                   f"stats {st0} on the card, {st0_c} on the CPU")
             h_c, _, st_c = incremental_gnn_update(
-                fns_c, g_c, g_c.nodes, _to(cache, "cpu"),
-                edge_update_sources(n, old, new, device="cpu"),
+                fns_c, g_c, g_c.nodes, cache_c, sources_c,
                 tau_f=DF_GNN_TAU_F)
             errs.append(_gnn_hold(f"τ_f {DF_GNN_TAU_F} update", h, h_c, tol))
             _check(st == st_c, f"df gnn batch {b}: the τ_f {DF_GNN_TAU_F} "
                    f"update's stats {st} on the card, {st_c} on the CPU")
-            line = (f"; CPU f32 full recompute {t_full:.1f} s, τ_f "
-                    f"{DF_GNN_TAU_F} update {time.perf_counter() - t1:.1f} s "
-                    f"(its stats equal the card's); card vs CPU: "
-                    f"{'; '.join(errs)}")
-            del h_c
+            line = (f"; CPU f32 pre-batch pass {t_pre:.1f} s, full "
+                    f"recompute {t_full:.1f} s, τ_f 0 and {DF_GNN_TAU_F} "
+                    f"updates {time.perf_counter() - t1:.1f} s (stats "
+                    f"equal the card's at both: τ_f 0 {st0_c['affected']}); "
+                    f"card vs CPU: {'; '.join(errs)}")
+            del h_c, cache_c
         if b == 1:
             split = _gnn_split(lambda: incremental_gnn_update(
                 fns_d, g_d, g_d.nodes, cache, sources, tau_f=DF_GNN_TAU_F),
@@ -4348,6 +4414,8 @@ def _df_gnn(smi: str) -> None:
     peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
     print(f"df gnn ogb_products: peak card memory {peak:.2f} GB above the "
           f"phase's start [{smi}]", flush=True)
+    _check(peak <= DF_GNN_PEAK_GB, f"df gnn: peak card memory {peak:.2f} GB "
+           f"> {DF_GNN_PEAK_GB} GB")
 
 
 def _gnn_phase(kernel_fns, smi: str) -> None:
@@ -4370,10 +4438,198 @@ def _gnn_phase(kernel_fns, smi: str) -> None:
         parts[part] = round(time.perf_counter() - t0, 1)
     launches = {fn.__name__: fn.launches for fn in kernel_fns}
     print(f"launches on the GNN path: {launches} (message passing is "
-          f"index_select / index_add_, the products torch.matmul); phase 17 "
-          f"took {time.perf_counter() - t_phase:.1f} s ({parts} s, torch "
-          f"threads {torch.get_num_threads()}) [{smi}]", flush=True)
+          f"index_select / segment_reduce, the products torch.matmul); "
+          f"phase 17 took {time.perf_counter() - t_phase:.1f} s ({parts} s, "
+          f"torch threads {torch.get_num_threads()}) [{smi}]", flush=True)
     _check(not any(launches.values()), "the GNN path launched a PageRank "
+           "kernel")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the LM serve path
+# ---------------------------------------------------------------------------
+
+LM_SEED = 18
+LM_BATCH = 4                     # prompts a prefill
+LM_DECODE = 16                   # greedy decode steps after it
+LM_REPS = 3                      # prefills timed, the median printed
+# (arch, layers, prompt tokens, config overrides): the timed depth; the
+# published widths, each config's own activation and param dtypes
+LM_CELLS = (
+    ("qwen1.5-4b", 40, 512, {}),
+    ("phi4-mini-3.8b", 32, 512, {"cache_dtype": "float8_e4m3fn"}),
+    ("granite-moe-3b-a800m", 32, 512, {}),
+    ("mixtral-8x22b", 2, 4608, {}),          # past the 4,096-slot window
+    ("nemotron-4-340b", 1, 512, {}),
+)
+LM_MOE_CAPACITY = 8.0            # no token dropped: decode can match forward
+LM_CHECK_LAYERS = 2              # (i): full width, f32 activations
+LM_CHECK_PROMPT = 16
+LM_TOL_I = (1e-4, 1e-4)          # (i) card vs CPU: (rtol, atol)
+# (ii) prefill's and decode's logits vs forward's at the same position, max
+# abs, set from a prediction written before the first run (PERF.md): bf16
+# rounding in GEMMs of other shapes; an f8 cache adds its own rounding
+LM_TOL_II = {"bfloat16": 0.15, "float8_e4m3fn": 0.3}
+
+
+def _lm_cfg(arch: str, **over):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).build_cfg(**over)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=LM_MOE_CAPACITY))
+    return cfg
+
+
+def _lm_params(cfg) -> dict:
+    """``init_params`` on the card from a seeded CUDA generator, then wq and
+    wk rescaled to a fan-in of d_model.  The reference's rule takes the
+    fan-in of a [D, H, dh] weight to be H, so q and k come out N(0, D/H):
+    scores of ~100, every softmax one-hot, and logits that a rounding flips
+    (a 1e-7 change of the params moves them by O(1) at 40 layers:
+    ``tools/lm_sensitivity.py``); rescaled, the scores are O(1) and a logit
+    moves with its rounding."""
+    from repro_torch.models.transformer import model as TM
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(LM_SEED)
+    params = TM.init_params(cfg, gen, device="cuda")
+    for name, fan in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads)):
+        params[f"layers/{name}"].mul_((fan / cfg.d_model) ** 0.5)
+    return params
+
+
+def _lm_cpu_params(params: dict, cfg, tokens: torch.Tensor) -> tuple:
+    """The CPU's copy of the card's params in f32 (exact), and the tokens to
+    feed it: an untied model takes only the embedding rows the tokens use
+    (the tokens renumbered into them), which spares the CPU a full copy of
+    the largest table (nemotron's is 9.4 G values)."""
+    out = {k: v.cpu().float() for k, v in params.items() if k != "emb"}
+    if cfg.tie_embeddings:
+        out["emb"] = params["emb"].cpu().float()
+        return out, tokens
+    rows = torch.unique(tokens)
+    out["emb"] = params["emb"][rows.cuda()].cpu().float()
+    return out, torch.searchsorted(rows, tokens)
+
+
+def _lm_card_vs_cpu(arch: str, smi: str) -> str:
+    """(i): 2 layers at the full width, f32 activations (the config's param
+    dtype): ``forward``, ``prefill`` and one ``decode_step`` on the card
+    held to the same on the CPU from the same weights."""
+    from repro_torch.models.transformer import model as TM
+    cfg = _lm_cfg(arch, n_layers=LM_CHECK_LAYERS, dtype="float32",
+                  cache_dtype=None)
+    S = LM_CHECK_PROMPT
+    tok = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (1, S + 1)))
+    t0 = time.perf_counter()
+    params = _lm_params(cfg)
+    tok_d = tok.cuda()
+
+    def run(p, t):
+        fwd, _ = TM.forward(p, t, cfg)
+        pre, cache = TM.prefill(p, t[:, :S], cfg, cache_len=S + 4)
+        dec, _ = TM.decode_step(p, cache, t[:, S], S, cfg)
+        return [x.cpu() for x in (fwd, pre, dec)]
+
+    got = run(params, tok_d)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_c, tok_c = _lm_cpu_params(params, cfg, tok)
+    del params
+    torch.cuda.empty_cache()
+    ref = run(p_c, tok_c)
+    del p_c
+    errs = [_gnn_hold(what, g, r, LM_TOL_I)
+            for what, g, r in zip(("forward", "prefill", "decode"), got, ref)]
+    return (f"(i) {LM_CHECK_LAYERS} layers f32, card vs CPU: "
+            f"{'; '.join(errs)} (rtol {LM_TOL_I[0]}, atol {LM_TOL_I[1]}; "
+            f"card {t_card:.1f} s, CPU {time.perf_counter() - t0:.1f} s)")
+
+
+def _lm_serve(arch: str, n_layers: int, S: int, over: dict,
+              smi: str) -> None:
+    """The timed serve path at the timed depth and dtype, and (ii)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as TM
+    cfg = _lm_cfg(arch, n_layers=n_layers, **over)
+    n_published = get_arch(arch).build_cfg().n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    params = _lm_params(cfg)
+    n_params = sum(v.numel() for v in params.values())
+    B, cache_len = LM_BATCH, S + LM_DECODE
+    prompt = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (B, S))).cuda()
+    pre, cache = TM.prefill(params, prompt, cfg, cache_len)
+    pre_ms = _event_ms(lambda: TM.prefill(params, prompt, cfg, cache_len),
+                       reps=LM_REPS)
+    toks, dec, events = [], [], []
+    nxt = pre.argmax(-1)
+    for j in range(LM_DECODE):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = TM.decode_step(params, cache, nxt, S + j, cfg)
+        b.record()
+        toks.append(nxt)
+        dec.append(logits)
+        events.append((a, b))
+        nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec_ms = float(np.median([a.elapsed_time(b) for a, b in events]))
+    del cache
+    fwd, _ = TM.forward(params, torch.cat([prompt, torch.stack(toks, 1)], 1),
+                        cfg)
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    dec = torch.stack(dec, 1)                               # [B, 16, V]
+    _check(bool(torch.isfinite(pre).all() and torch.isfinite(dec).all()
+                and torch.isfinite(fwd).all()),
+           f"lm {arch}: a logit is not finite")
+    ref_pre, ref_dec = fwd[:, S - 1], fwd[:, S:S + LM_DECODE]
+    err_pre = float((pre - ref_pre).abs().max())
+    err_dec = float((dec - ref_dec).abs().max())
+    agree = float((dec.argmax(-1) == ref_dec.argmax(-1)).float().mean())
+    tol = LM_TOL_II[cfg.cache_dtype or cfg.dtype]
+    _check(max(err_pre, err_dec) <= tol,
+           f"lm {arch}: prefill {err_pre:.3e} and decode {err_dec:.3e} off "
+           f"forward's logits (max abs), over {tol}")
+    print(f"lm {arch}: {n_layers} of {n_published} layers, "
+          f"{n_params / 1e9:.2f} G params {cfg.param_dtype}, activations "
+          f"{cfg.dtype}, cache {cfg.cache_dtype or cfg.dtype}; B {B}, prompt "
+          f"{S}: prefill {pre_ms:.3f} ms (median of {LM_REPS}, "
+          f"{B * S / pre_ms * 1e3:.0f} tokens/s), decode {dec_ms:.3f} ms a "
+          f"step (median of {LM_DECODE}, {B / dec_ms * 1e3:.1f} tokens/s); "
+          f"peak card memory {peak:.2f} GB; (ii) vs forward: prefill "
+          f"{err_pre:.3e}, decode {err_dec:.3e} max abs of |logits| up to "
+          f"{float(ref_dec.abs().max()):.3g} (tol {tol}), greedy tokens "
+          f"agree {agree:.3f} [{smi}]", flush=True)
+    del params, pre, dec, fwd
+    torch.cuda.empty_cache()
+
+
+def _lm_phase(kernel_fns, smi: str) -> None:
+    """Phase 18: each LM config's (i) check, then its timed serve path and
+    (ii).  No hand-written kernel is on this path: the counters are zeroed
+    before and must read 0 after."""
+    t_phase = time.perf_counter()
+    _check(torch.backends.cuda.matmul.allow_tf32 is False,
+           "TF32 is on: the LM scores and logits must stay IEEE f32")
+    for fn in kernel_fns:
+        fn.launches = 0
+    for arch, n_layers, S, over in LM_CELLS:
+        t0 = time.perf_counter()
+        line = _lm_card_vs_cpu(arch, smi)
+        torch.cuda.empty_cache()
+        print(f"lm {arch}: {line} [{smi}]", flush=True)
+        _lm_serve(arch, n_layers, S, over, smi)
+        print(f"lm {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {fn.__name__: fn.launches for fn in kernel_fns}
+    print(f"launches on the LM path: {launches} (torch.matmul, softmax and "
+          f"masks); phase 18 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]", flush=True)
+    _check(not any(launches.values()), "the LM path launched a PageRank "
            "kernel")
 
 
@@ -4592,9 +4848,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 17: the GNN model zoo and the DF-incremental GNN update ------
-    _gnn_phase((bsk.block_spmv_cuda, bsk.block_spmv_active_cuda,
-                bws.blocked_sweep_cuda, wk.walk_regen_cuda,
-                wk.walk_touch_cuda), smi)
+    kernel_fns = (bsk.block_spmv_cuda, bsk.block_spmv_active_cuda,
+                  bws.blocked_sweep_cuda, wk.walk_regen_cuda,
+                  wk.walk_touch_cuda)
+    _gnn_phase(kernel_fns, smi)
+    torch.cuda.empty_cache()
+
+    # -- phase 18: the LM serve path -----------------------------------------
+    _lm_phase(kernel_fns, smi)
     for row in table:
         row["launches"] = sum(
             path[row["name"]] for path in (
@@ -4612,11 +4873,36 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def _phase_alone(which: str) -> None:
+    """``--phase 17`` or ``--phase 18``: one model phase alone (no kernel
+    is built; the counters must still read 0 after it)."""
+    if not torch.cuda.is_available():
+        _fail("no CUDA device is visible; the port's smoke run needs one")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.block_spmv import block_spmv as bsk
+    from repro_torch.kernels.blocked_sweep import blocked_sweep as bws
+    from repro_torch.kernels.walk import walk as wk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}", flush=True)
+    kernel_fns = (bsk.block_spmv_cuda, bsk.block_spmv_active_cuda,
+                  bws.blocked_sweep_cuda, wk.walk_regen_cuda,
+                  wk.walk_touch_cuda)
+    {"17": _gnn_phase, "18": _lm_phase}[which](kernel_fns, smi)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
         _durable_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--phase" \
+            and sys.argv[2] in ("17", "18"):
+        _phase_alone(sys.argv[2])
     elif len(sys.argv) == 1:
         main()
     else:
-        _fail("usage: python3 chip_smoke.py (the internal child mode is "
-              "--durable-child DIR)")
+        _fail("usage: python3 chip_smoke.py [--phase 17|18] (the internal "
+              "child mode is --durable-child DIR)")

@@ -61,6 +61,21 @@ def session_from_numpy(n: int, edges: np.ndarray, ranks: np.ndarray,
     return sess
 
 
+def _params_from_numpy(params: Mapping[str, np.ndarray], device, dtype
+                       ) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    dt = None if dtype is None else as_torch_dtype(dtype)
+    out = {}
+    for name, a in params.items():
+        a = np.array(a)                              # owned copy
+        if a.dtype.name == "bfloat16":               # ml_dtypes: the bits
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        out[name] = t.to(device=dev, dtype=dt if dt is not None else t.dtype)
+    return out
+
+
 def gnn_params_from_numpy(params: Mapping[str, np.ndarray], *,
                           device="cuda", dtype=None
                           ) -> Dict[str, torch.Tensor]:
@@ -69,10 +84,14 @@ def gnn_params_from_numpy(params: Mapping[str, np.ndarray], *,
     repro.models.gnn.graphsage.init(cfg, key).items()}``): same names, same
     values, stacked ``layers/*`` leaves keeping their leading layer axis;
     ``dtype`` casts every leaf (default: each array's own)."""
-    dev = resolve_device(device)
-    dt = None if dtype is None else as_torch_dtype(dtype)
-    out = {}
-    for name, a in params.items():
-        t = torch.from_numpy(np.array(a))          # owned copy
-        out[name] = t.to(device=dev, dtype=dt if dt is not None else t.dtype)
-    return out
+    return _params_from_numpy(params, device, dtype)
+
+
+def lm_params_from_numpy(params: Mapping[str, np.ndarray], *,
+                         device="cuda", dtype=None
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's LM parameter dict from the JAX package's flat one
+    (``{k: np.asarray(v) for k, v in
+    repro.models.transformer.model.init_params(cfg, key).items()}``), as
+    :func:`gnn_params_from_numpy`; bfloat16 arrays cross bit for bit."""
+    return _params_from_numpy(params, device, dtype)

@@ -201,7 +201,7 @@ def full_gnn_layers(mod, params, cfg) -> List[Callable]:
 
     def make(i):
         def fn(g, h):
-            neigh = C.scatter_mean(g, C.gather_src(g, h))
+            neigh = C.mean_aggregate(g, h)
             return GS._layer(params, i, h, neigh)
         return fn
 

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
-           "bfloat16": torch.bfloat16}
+           "bfloat16": torch.bfloat16,
+           "float8_e4m3fn": torch.float8_e4m3fn}     # the LM KV cache
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda"

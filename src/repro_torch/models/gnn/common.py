@@ -2,9 +2,14 @@
 (ports ``src/repro/models/gnn/common.py``).
 
 Message passing is a gather along edges (``index_select``) and a
-scatter-aggregate by destination (``index_add_`` / ``scatter_reduce``).
-Edge arrays may be padded with ``src = dst = n_pad`` (a phantom node), so
-padded edges aggregate into a discarded bin, as in the reference.
+scatter-aggregate by destination.  The sums add each destination's messages
+in edge-array order, as the reference's ``jax.ops.segment_sum`` does on the
+CPU, on every device: a stable sort of the destinations (kept while their
+tensor is unchanged) and ``torch.segment_reduce`` over the sorted messages,
+so a sum is the same bits on the CPU and the card and from run to run.
+``scatter_max`` (``scatter_reduce``) is exact in any order.  Edge arrays may
+be padded with ``src = dst = n_pad`` (a phantom node), so padded edges
+aggregate into a discarded bin, as in the reference.
 
 ``shard_edges`` and ``constrain`` (the reference's sharding constraints)
 are the identity on one device and are not ported (ROADMAP watch list);
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+import weakref
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -85,13 +91,57 @@ def gather_dst(g: GraphBatch, h: torch.Tensor) -> torch.Tensor:
                                          g.receivers.clamp(max=g.n_pad - 1)))
 
 
+class SegmentOrder(NamedTuple):
+    """Entries of a segment-id array grouped by segment: ``perm`` is the
+    stable argsort of the ids (each segment's entries in array order) and
+    ``lengths`` the size of each of the ``n_bins`` segments."""
+    perm: torch.Tensor
+    lengths: torch.Tensor
+
+
+# id(ids tensor) -> (weak reference, its version, n_bins, SegmentOrder)
+_ORDERS: Dict[int, tuple] = {}
+
+
+def segment_order(seg: torch.Tensor, n_bins: int) -> SegmentOrder:
+    """The :class:`SegmentOrder` of ``seg`` (ids in ``[0, n_bins)``), sorted
+    once and kept while ``seg`` lives unmodified: an edge array changed in
+    place through torch (its version counter moves) is sorted again at its
+    next use.  A write that goes around torch — into a numpy view of a CPU
+    tensor — is not seen; write edge arrays through torch."""
+    key = id(seg)
+    hit = _ORDERS.get(key)
+    if hit is not None and hit[0]() is seg and hit[1] == seg._version \
+            and hit[2] == n_bins:
+        return hit[3]
+    perm = torch.sort(seg, stable=True).indices.to(seg.dtype)
+    lengths = torch.zeros(n_bins, dtype=torch.int64, device=seg.device)
+    lengths.index_add_(0, seg, torch.ones_like(seg, dtype=torch.int64))
+    order = SegmentOrder(perm, lengths)
+    _ORDERS[key] = (weakref.ref(seg, lambda _, k=key: _ORDERS.pop(k, None)),
+                    seg._version, n_bins, order)
+    return order
+
+
+def sorted_segment_sum(xs: torch.Tensor, lengths: torch.Tensor
+                       ) -> torch.Tensor:
+    """Per-segment sums of rows already grouped by segment (``xs[perm]``),
+    each segment added in row order from 0.  The rows go in as a 2-D
+    tensor, so the card takes ``segment_reduce``'s serial loop per output
+    element rather than its tree reduction for 1-D data.  ``lengths`` are
+    counts of ids (non-negative, summing to the rows), so the op's own
+    checks of them, two host reads a call, are skipped (``unsafe``)."""
+    flat = xs.reshape(xs.shape[0], -1)
+    out = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0,
+                               unsafe=True)
+    return out.reshape((lengths.shape[0],) + tuple(xs.shape[1:]))
+
+
 def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n_bins: int
                  ) -> torch.Tensor:
-    if seg.device.type == "cpu":
-        seg = seg.long()    # index_add_ on the CPU: int32 ids ~5x slower
-    out = torch.zeros((n_bins,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    return out.index_add_(0, seg, x)
+    """Σ over the rows of ``x`` with each id, in row order."""
+    order = segment_order(seg, n_bins)
+    return sorted_segment_sum(x.index_select(0, order.perm), order.lengths)
 
 
 def scatter_sum(g: GraphBatch, messages: torch.Tensor) -> torch.Tensor:
@@ -99,14 +149,35 @@ def scatter_sum(g: GraphBatch, messages: torch.Tensor) -> torch.Tensor:
     return _segment_sum(messages, g.receivers, g.n_pad + 1)[:g.n_pad]
 
 
+def _edge_counts(g: GraphBatch, order: SegmentOrder, dtype) -> torch.Tensor:
+    """In-edges per destination (unmasked ones), exact, as ``dtype``."""
+    if g.edge_mask is None:
+        cnt = order.lengths
+    else:
+        cnt = torch.zeros_like(order.lengths).index_add_(
+            0, g.receivers, g.edge_mask.to(torch.int64))
+    return cnt[:g.n_pad].to(dtype)
+
+
 def scatter_mean(g: GraphBatch, messages: torch.Tensor) -> torch.Tensor:
     s = scatter_sum(g, messages)
-    ones = torch.ones((messages.shape[0],), dtype=messages.dtype,
-                      device=messages.device)
-    if g.edge_mask is not None:
-        ones = ones * g.edge_mask
-    cnt = _segment_sum(ones, g.receivers, g.n_pad + 1)[:g.n_pad]
+    cnt = _edge_counts(g, segment_order(g.receivers, g.n_pad + 1), s.dtype)
     return s / cnt.clamp(min=1.0)[:, None]
+
+
+def mean_aggregate(g: GraphBatch, h: torch.Tensor) -> torch.Tensor:
+    """``scatter_mean(g, gather_src(g, h))``, the same bits, with the gather
+    taken in destination order: ``h[senders[perm]]`` feeds the segment sum
+    directly, so no second ``[E, d]`` tensor is made."""
+    order = segment_order(g.receivers, g.n_pad + 1)
+    src = g.senders.index_select(0, order.perm).clamp_(max=g.n_pad - 1)
+    v = h.index_select(0, src)
+    del src
+    if g.edge_mask is not None:
+        v.masked_fill_(~g.edge_mask.index_select(0, order.perm)[:, None], 0)
+    s = sorted_segment_sum(v, order.lengths)[:g.n_pad]
+    del v
+    return s / _edge_counts(g, order, s.dtype).clamp(min=1.0)[:, None]
 
 
 def scatter_max(g: GraphBatch, messages: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,7 @@ def _layer(params, i, h_self, h_neigh_mean):
 def forward(params, cfg: C.GNNConfig, g: C.GraphBatch) -> torch.Tensor:
     h = g.nodes
     for i in range(cfg.n_layers):
-        neigh = C.scatter_mean(g, C.gather_src(g, h))
+        neigh = C.mean_aggregate(g, h)
         h = _layer(params, i, h, neigh)
     if cfg.task == "graph_reg":
         h = C.graph_readout(g, h, op="mean")

@@ -1563,3 +1563,157 @@ def test_cuda_gnn_sampled_and_incremental_match_cpu(cuda_device):
             for fd in fns_d:
                 full = fd(g_d, full)
             torch.testing.assert_close(hd_, full, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the ordered GNN segment sum on the card (ROADMAP C 12)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_is_the_cpu_sum_bit_for_bit(cuda_device):
+    """The card adds each destination's messages in edge order, as the CPU
+    does: equal bits on data where another order rounds differently, 2-D
+    and 1-D messages, int32 and int64 ids; once the order is kept, a sum
+    reads nothing back to the host."""
+    from repro_torch.models.gnn import common as C
+    rng = np.random.default_rng(0)
+    n, e = 300, 60000
+    rcv = torch.from_numpy(rng.integers(0, n + 1, e).astype(np.int32))
+    msg = torch.from_numpy((rng.normal(size=(e, 8))
+                            * 10.0 ** rng.integers(-4, 9, (e, 1))
+                            ).astype(np.float32))
+    for ids in (rcv, rcv.long()):
+        ids_d = ids.to(cuda_device)
+        for x in (msg, msg[:, 0].contiguous()):
+            want = C._segment_sum(x, ids, n + 1)
+            got = C._segment_sum(x.to(cuda_device), ids_d, n + 1)
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
+        # with the order kept, a sum makes no host sync
+        x_d = msg.to(cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            C._segment_sum(x_d, ids_d, n + 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_update_stats_at_tau_zero_equal_the_cpu(cuda_device):
+    """Over a 3-batch stream of edges rewired in place, the τ_f = 0
+    DF-incremental update's stats on the card equal the CPU's (each side
+    from its own exact cache), and two full passes on the card are equal
+    bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import incremental as inc
+    from repro_torch.models.gnn import graphsage
+    cfg = get_arch("graphsage-reddit").build_cfg(d_feat=16, n_out=4)
+    params = graphsage.init(cfg, 0, device="cpu")
+    p_d = {k: v.to(cuda_device) for k, v in params.items()}
+    n, e = 3000, 40000
+    g = _gnn_graph(n, e, 16, seed=11)
+    g_d = _gnn_to(g, cuda_device)
+    fns_c = inc.full_gnn_layers(graphsage, params, cfg)
+    fns_d = inc.full_gnn_layers(graphsage, p_d, cfg)
+
+    def full_pass(gr, fns):
+        cache = [gr.nodes]
+        for fn in fns:
+            cache.append(fn(gr, cache[-1]))
+        return cache
+
+    cache_c, cache_d = full_pass(g, fns_c), full_pass(g_d, fns_d)
+    again = full_pass(g_d, fns_d)
+    assert all(torch.equal(a, b) for a, b in zip(cache_d, again))
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        # rewired in place through torch on both sides (the host's final
+        # values where an index repeats)
+        idx = torch.from_numpy(rng.integers(0, e, 40))
+        old = np.stack([g.senders[idx].numpy(), g.receivers[idx].numpy()], 1)
+        g.senders[idx] = torch.from_numpy(rng.integers(0, n, 40)).int()
+        g.receivers[idx] = torch.from_numpy(rng.integers(0, n, 40)).int()
+        new = np.stack([g.senders[idx].numpy(), g.receivers[idx].numpy()], 1)
+        g_d.senders[idx.to(cuda_device)] = g.senders[idx].to(cuda_device)
+        g_d.receivers[idx.to(cuda_device)] = g.receivers[idx].to(cuda_device)
+        _, _, st_c = inc.incremental_gnn_update(
+            fns_c, g, g.nodes, cache_c,
+            inc.edge_update_sources(n, old, new, device="cpu"), tau_f=0.0)
+        _, _, st_d = inc.incremental_gnn_update(
+            fns_d, g_d, g_d.nodes, cache_d,
+            inc.edge_update_sources(n, old, new, device=cuda_device),
+            tau_f=0.0)
+        assert st_d == st_c
+        assert st_d["recomputed"] < st_d["total"]
+        cache_c, cache_d = full_pass(g, fns_c), full_pass(g_d, fns_d)
+        again = full_pass(g_d, fns_d)
+        assert all(torch.equal(a, b) for a, b in zip(cache_d, again))
+
+
+# ---------------------------------------------------------------------------
+# the LM transformer on the card
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen1.5-4b", "phi4-mini-3.8b", "nemotron-4-340b",
+            "granite-moe-3b-a800m", "mixtral-8x22b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_matches_cpu(cuda_device, arch):
+    """Each LM config at its smoke shape: ``forward``, ``loss_fn``,
+    ``prefill`` and two ``decode_step`` s on the card against the CPU, f32
+    both (rtol 1e-4, atol 1e-4, as the CPU twins hold the port to JAX);
+    mixtral's prompt outgrows its 32-slot ring."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as TM
+    cfg = get_arch(arch).smoke_cfg()
+    params = TM.init_params(cfg, 0, device="cpu")
+    p_d = {k: v.to(cuda_device) for k, v in params.items()}
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 42)))
+    lab = torch.from_numpy(rng.integers(-1, cfg.vocab, (2, 42)))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    lc, ac = TM.forward(params, tok, cfg)
+    ld, ad = TM.forward(p_d, tok.to(cuda_device), cfg)
+    torch.testing.assert_close(ld.cpu(), lc, **tol)
+    torch.testing.assert_close(ad.cpu(), ac, rtol=1e-5, atol=1e-6)
+    xc, _ = TM.loss_fn(params, tok, lab, cfg)
+    xd, _ = TM.loss_fn(p_d, tok.to(cuda_device), lab.to(cuda_device), cfg)
+    torch.testing.assert_close(xd.cpu(), xc, rtol=1e-5, atol=1e-5)
+    pc, cc = TM.prefill(params, tok[:, :40], cfg, cache_len=44)
+    pd, cd = TM.prefill(p_d, tok[:, :40].to(cuda_device), cfg, cache_len=44)
+    torch.testing.assert_close(pd.cpu(), pc, **tol)
+    for j in (40, 41):
+        pc, cc = TM.decode_step(params, cc, tok[:, j], j, cfg)
+        pd, cd = TM.decode_step(p_d, cd, tok[:, j].to(cuda_device), j, cfg)
+        torch.testing.assert_close(pd.cpu(), pc, **tol)
+        for k in ("k", "v"):
+            torch.testing.assert_close(cd[k].cpu(), cc[k], **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_f8_cache_cast_and_top_k_equal_the_cpu(cuda_device):
+    """The f8 cache cast on the card gives the CPU's bytes (beyond ±464,
+    ±inf and NaN too, from f32 and bf16), and ``top_k`` breaks the same
+    ties."""
+    from repro_torch.models.transformer import layers as TL
+    rng = np.random.default_rng(2)
+    v = np.concatenate([np.linspace(-600, 600, 24001, dtype=np.float32),
+                        np.array([np.inf, -np.inf, np.nan, 464.0, 464.01,
+                                  -464.01, 1e38], np.float32),
+                        (rng.normal(size=50000) * 300).astype(np.float32),
+                        (rng.normal(size=50000) * 2.0 ** -8
+                         ).astype(np.float32)])
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(v).to(dt)
+        want = TL.cache_cast(x, torch.float8_e4m3fn).view(torch.uint8)
+        got = TL.cache_cast(x.to(cuda_device), torch.float8_e4m3fn)
+        assert torch.equal(got.view(torch.uint8).cpu(), want)
+    probs = torch.from_numpy(rng.integers(0, 4, (500, 40)).astype(
+        np.float32) / 8)
+    for k in (1, 2, 8):
+        vc, ic = TL.top_k(probs, k)
+        vd, id_ = TL.top_k(probs.to(cuda_device), k)
+        assert torch.equal(id_.cpu(), ic) and torch.equal(vd.cpu(), vc)

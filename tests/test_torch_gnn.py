@@ -14,7 +14,11 @@ graphs with ``task="graph_reg"`` and a graph with edge features; so do
 GraphSAGE's ``forward_sampled`` and
 ``loss_fn_sampled``, the message-passing primitives, and twins of
 ``tests/test_models.py::test_egnn_is_e3_equivariant`` and
-``::test_gnn_node_permutation_equivariance``.
+``::test_gnn_node_permutation_equivariance``.  The segment sum adds each
+destination's messages in edge order: bit for bit a serial loop (and
+``jax.ops.segment_sum``) on data where another order rounds differently;
+GraphSAGE's ``mean_aggregate`` is ``scatter_mean`` of the gather bit for
+bit; the sort is kept until the ids change in place.
 """
 import dataclasses
 
@@ -403,3 +407,80 @@ def test_entry_points_default_to_the_card():
         tgnn.graphsage.init(cfg, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gnn_params_from_numpy({"w": np.zeros(2, np.float32)})
+
+
+# ---------------------------------------------------------------------------
+# the ordered segment sum (ROADMAP C 12)
+# ---------------------------------------------------------------------------
+
+def _order_sensitive(seed: int = 0):
+    """Edges and f32 messages whose per-destination sums round differently
+    in another order: magnitudes from 1e-4 to 1e8 in one destination."""
+    rng = np.random.default_rng(seed)
+    n, e, d = 30, 3000, 4
+    rcv = rng.integers(0, n + 1, e).astype(np.int32)      # bin n: padding
+    msg = (rng.normal(size=(e, d))
+           * 10.0 ** rng.integers(-4, 9, (e, 1))).astype(np.float32)
+    return n, rcv, msg
+
+
+def _serial_sums(rcv, msg, n_bins, order):
+    out = np.zeros((n_bins,) + msg.shape[1:], np.float32)
+    for i in order:
+        out[rcv[i]] += msg[i]
+    return out
+
+
+def test_segment_sum_adds_in_edge_order():
+    """``_segment_sum`` equals a serial loop over the edges in array order
+    bit for bit, on data where the reversed loop differs."""
+    n, rcv, msg = _order_sensitive()
+    want = _serial_sums(rcv, msg, n + 1, range(len(rcv)))
+    other = _serial_sums(rcv, msg, n + 1, reversed(range(len(rcv))))
+    assert (other != want).any()
+    for ids in (torch.from_numpy(rcv), torch.from_numpy(rcv).long()):
+        got = TC._segment_sum(torch.from_numpy(msg), ids, n + 1)
+        np.testing.assert_array_equal(_np(got).view(np.uint32),
+                                      want.view(np.uint32))
+        got1 = TC._segment_sum(torch.from_numpy(msg[:, 0]), ids, n + 1)
+        np.testing.assert_array_equal(_np(got1), want[:, 0])
+    # the reference's CPU segment_sum adds in the same order
+    js = jax.ops.segment_sum(jnp.asarray(msg), jnp.asarray(rcv),
+                             num_segments=n + 1)
+    np.testing.assert_array_equal(np.asarray(js), want)
+
+
+def test_mean_aggregate_is_the_mean_of_the_gather_bit_for_bit():
+    """GraphSAGE's ``mean_aggregate`` (the gather taken in destination
+    order) equals ``scatter_mean(g, gather_src(g, h))`` bit for bit, on a
+    plain and a padded, masked graph, and the reference within f32."""
+    cfg = get_arch("graphsage-reddit").smoke_cfg()
+    for kind in ("plain", "padded"):
+        arrs = _graph(kind, cfg, seed=7)
+        jg, tg = _batches(arrs, pos=False)
+        h = torch.from_numpy(arrs["nodes"]) * 1e3 ** torch.from_numpy(
+            np.random.default_rng(1).integers(-1, 2, (arrs["nodes"].shape[0],
+                                                      1))).float()
+        got = TC.mean_aggregate(tg, h)
+        want = TC.scatter_mean(tg, TC.gather_src(tg, h))
+        np.testing.assert_array_equal(_np(got), _np(want))
+        _close(got, JC.scatter_mean(jg, JC.gather_src(jg, jnp.asarray(
+            _np(h)))))
+
+
+def test_segment_order_is_kept_until_the_ids_change():
+    n, rcv, msg = _order_sensitive(1)
+    ids = torch.from_numpy(rcv.copy())
+    a = TC.segment_order(ids, n + 1)
+    assert TC.segment_order(ids, n + 1) is a             # sorted once
+    ids[:50] = torch.from_numpy(rcv[50:100])             # rewired in place
+    b = TC.segment_order(ids, n + 1)
+    assert b is not a
+    assert torch.equal(b.lengths, torch.bincount(ids.long(),
+                                                 minlength=n + 1))
+    want = _serial_sums(ids.numpy(), msg, n + 1, range(len(rcv)))
+    np.testing.assert_array_equal(
+        _np(TC._segment_sum(torch.from_numpy(msg), ids, n + 1)), want)
+    key = id(ids)
+    del ids, a, b
+    assert key not in TC._ORDERS                         # dropped with ids

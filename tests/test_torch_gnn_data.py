@@ -4,9 +4,9 @@ pipeline (``repro_torch.data.pipeline``) and GNN config registry
 
 The sampler and every stream are array-equal to the reference's on fixed
 seeds (the streams' tensors on ``device="cpu"``, with the reference's
-dtypes); the five ported architectures' ``ArchSpec`` and ``ShapeSpec``
-fields, their configs, ``list_archs`` and ``iter_cells`` equal the
-reference's restricted to them; ``pagerank_df.engine_config`` gives the
+dtypes); the ``ArchSpec`` and ``ShapeSpec`` fields of the ten ported
+architectures (the LM and GNN ones and ``pagerank-df``), their configs,
+``list_archs`` and ``iter_cells`` equal the reference's restricted to them; ``pagerank_df.engine_config`` gives the
 reference's ``EngineConfig`` fields.
 """
 import dataclasses
@@ -28,8 +28,9 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.graphs import sampler as tsampler
 
 CPU = "cpu"
-PORTED = ("egnn", "gatedgcn", "graphsage-reddit", "meshgraphnet",
-          "pagerank-df")
+PORTED = ("egnn", "gatedgcn", "granite-moe-3b-a800m", "graphsage-reddit",
+          "meshgraphnet", "mixtral-8x22b", "nemotron-4-340b", "pagerank-df",
+          "phi4-mini-3.8b", "qwen1.5-4b")
 
 
 @pytest.fixture(autouse=True)
@@ -223,7 +224,7 @@ def test_iter_cells_equal_the_reference():
 
 def test_registry_errors():
     with pytest.raises(KeyError, match="unknown arch"):
-        tconfigs.get_arch("qwen1.5-4b")         # not ported yet
+        tconfigs.get_arch("autoint")            # not ported yet
     from repro_torch.configs.registry import register
     with pytest.raises(ValueError, match="duplicate arch"):
         register(tconfigs.get_arch("egnn"))

@@ -30,7 +30,16 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.dist.compression", "repro_torch.models.gnn",
               "repro_torch.models.gnn.common", "repro_torch.configs",
               "repro_torch.configs.registry", "repro_torch.graphs.sampler",
-              "repro_torch.data.pipeline"):
+              "repro_torch.data.pipeline",
+              "repro_torch.models.transformer",
+              "repro_torch.models.transformer.config",
+              "repro_torch.models.transformer.layers",
+              "repro_torch.models.transformer.model",
+              "repro_torch.configs.qwen1_5_4b",
+              "repro_torch.configs.phi4_mini_3_8b",
+              "repro_torch.configs.nemotron_4_340b",
+              "repro_torch.configs.granite_moe_3b_a800m",
+              "repro_torch.configs.mixtral_8x22b"):
         assert m in mods
     code = (
         "import importlib, sys\n"
